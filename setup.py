@@ -11,13 +11,18 @@ setup(
     version="0.1.0",
     author="pointfoot-tpu authors",
     license="BSD-3-Clause",
-    packages=find_packages(include=["pointfoot_tpu", "pointfoot_tpu.*"]),
+    packages=find_packages(include=["pointfoot_tpu", "pointfoot_tpu.*",
+                                    "pointfoot_tpu_torch",
+                                    "pointfoot_tpu_torch.*"]),
     package_data={"pointfoot_tpu.physics": ["_assets/*.json"],
-                  "pointfoot_tpu.runtime": ["src/*.cpp"]},
+                  "pointfoot_tpu.runtime": ["src/*.cpp"],
+                  "pointfoot_tpu_torch": ["csrc/*.cu", "_weights/*.npz"],
+                  "pointfoot_tpu_torch.physics": ["_assets/*.json"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy"],
     extras_require={
         "export": ["torch"],
+        "torch": ["torch"],  # the PyTorch/CUDA port, pointfoot_tpu_torch
         "viz": ["matplotlib"],
         "dev": ["pytest"],
     },
