@@ -2,21 +2,39 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the policy rollout of pointfoot_rough on
-procedural terrain at 4096 envs, with the flagship actor:
+Drives the port's two main paths at full width: the policy rollout of
+pointfoot_rough (fused rollout kernels) and the actuator-net task
+anymal_c_rough (physics/dynamics.step_batched and its kernels), both on
+procedural terrain at 4096 envs.
 
-1. device and build: the card's name and power limit, the CUDA kernels of
-   pointfoot_tpu_torch/csrc/ built with nvcc (seconds, registers, spills);
-2. kernels against their plain PyTorch versions on a state reached after
-   20 policy steps, with a push queued: the full decimation rollout, one
-   substep and the sphere FK, each within its stated tolerance; per-launch
-   times of kernel and plain version, and the least time the card could
-   take (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s);
-3. the rollout at full width: 500 policy steps with the launch counters
-   reset just before and read just after (they must be 1x and 4x the step
-   count), env-steps/s and a per-layer time breakdown; then the regression
-   probe (level 0, command vx 0.4 m/s, 6 s): falls <= num_envs and mean
-   forward velocity >= 0.15 m/s.
+1. device and build: the card's name and power limit; the PointFoot,
+   ANYmal and Cholesky libraries of pointfoot_tpu_torch/csrc/ built by
+   parallel nvcc processes (seconds, registers, spills);
+2. PointFoot kernels against their plain PyTorch versions on a state
+   reached after 20 policy steps, with a push queued: the full decimation
+   rollout, one rollout substep and the sphere FK, each within its stated
+   tolerance;
+3. step_batched's kernels against their plain versions on an anymal_c_rough
+   state reached after 20 steps of the bench action signal, with a push
+   queued: the mega-kernel route (sphere-xy FK, surface query, substep
+   kernel) against the plain path, the FK-xy kernel against its twin, and
+   the Cholesky kernel against ops/linalg.chol_solve on the velocity
+   systems of 2048 ANYmal and 2048 PointFoot envs;
+   for every kernel: per-launch time of kernel and plain version by CUDA
+   events, and the least time the card could take (bytes over 3.35 TB/s or
+   float32 operations over 67 TFLOP/s); the Cholesky kernel also beside
+   torch.linalg.cholesky + torch.cholesky_solve;
+4. the PointFoot rollout at full width: 500 policy steps with the launch
+   counters reset just before and read just after (1x and 4x the step
+   count), env-steps/s, a per-layer breakdown and the regression probe
+   (level 0, command vx 0.4 m/s, 6 s): falls <= num_envs and mean forward
+   velocity >= 0.15 m/s;
+5. anymal_c_rough at full width: 200 steps of the bench signal (substep and
+   FK-xy kernels 4x the step count each, the other kernels 0), env-steps/s,
+   a per-layer breakdown, and the physical gate (level 0, zero actions, no
+   pushes, 2 s) inside the band the JAX package gives;
+6. anymal_c_rough at 2048 envs, the Cholesky route: 25 steps, Cholesky
+   kernel 4x the step count, substep kernel 0.
 
 The line before the last holds the kernels' JSON record, the one before it
 the card's name and power limit, and the last line is the JSON
@@ -36,21 +54,51 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from pointfoot_tpu_torch.ops.cuda import build
+from pointfoot_tpu_torch.ops.cuda import cholesky as ch
 from pointfoot_tpu_torch.ops.cuda import substep as sp
+from pointfoot_tpu_torch.physics import actuator as act
+from pointfoot_tpu_torch.physics import dynamics
+from pointfoot_tpu_torch.physics.contact import query_surface
+from pointfoot_tpu_torch.physics.model import PhysicsState
 from pointfoot_tpu_torch.utils import policy_eval
 from pointfoot_tpu_torch.utils.registry import make_env
 
 NUM_ENVS = 4096
+CHOL_ENVS = 2048
 WARM_STEPS = 20
 ROLLOUT_STEPS = 500
+ANYMAL_STEPS = 200
+CHOL_STEPS = 25
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
-SOURCE = "pointfoot_tpu_torch/csrc/substep.cu"
-# tolerances of tests/test_pallas_substep.py:141-151 (kernel vs reference)
+SUBSTEP_SRC = "pointfoot_tpu_torch/csrc/substep.cu"
+CHOL_SRC = "pointfoot_tpu_torch/csrc/cholesky.cu"
+# tolerances of tests/test_pallas_substep.py:141-151 (rollout vs reference)
 ROLLOUT_TOL = {"qvel": 2e-3, "base_lin_vel": 5e-4, "base_pos": 5e-5,
                "tau": 5e-3, "sphere_pos": 5e-5}
 FORCE_ATOL, FORCE_RTOL = 0.05, 1e-3
 FK_TOL = 2e-5
+# tolerances of tests/test_pallas_substep.py:50-60 (one substep vs
+# step_batched): (atol, rtol) per state field
+STEP_TOL = {"base_lin_vel": (3e-4, 3e-4), "base_ang_vel": (3e-4, 3e-4),
+            "qvel": (1e-3, 3e-4), "base_pos": (2e-5, 0.0),
+            "base_quat": (2e-5, 0.0), "qpos": (2e-5, 0.0),
+            "contact_force": (0.1, 1e-3)}
+CHOL_TOL = 3e-3  # rtol and atol, tests/test_pallas.py:24
+ANYMAL_PATCH = dict(terrain=dict(procedural=True))
+# The physical gate: anymal_c_rough on level 0 of procedural terrain
+# without the discrete-obstacle family, zero actions, no pushes, 2 s.  The
+# JAX package on the CPU gives, at 8 envs (tests/test_torch_physical_gate.py
+# recomputes it and holds it inside these bands): a mean base height above
+# the terrain under the base of 0.351 m at 2 s (envs 0.278-0.425 m), no
+# terminations.
+GATE_PATCH = dict(
+    terrain=dict(procedural=True, max_init_terrain_level=0,
+                 terrain_proportions=(0.1, 0.1, 0.35, 0.45)),
+    domain_rand=dict(push_robots=False), noise=dict(add_noise=False))
+GATE_STEPS = 100  # 2 s at the 50 Hz policy rate
+GATE_MEAN_HEIGHT = (0.25, 0.45)  # m
+GATE_MAX_TERMINATED = 0.02  # share of envs
 
 
 def log(*args):
@@ -120,6 +168,71 @@ def max_err(a, b) -> float:
     return float((a - b).abs().max())
 
 
+def reset_counts():
+    sp.reset_launch_counts()
+    ch.chol_solve_lanes.launches = 0
+
+
+def read_counts() -> dict:
+    return {"rollout_substep": sp.rollout_step.launches,
+            "fk_from_state": sp.fk_rows.launches,
+            "substep": sp.step_rows.launches,
+            "fk_contact_xy": sp.fk_xy_rows.launches,
+            "chol_solve": ch.chol_solve_lanes.launches}
+
+
+def expect_counts(got: dict, **want):
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        raise AssertionError(f"launch counts {got} != {full}")
+
+
+def kernel_record(name, source, replaces, launches, err, ms, plain_ms,
+                  nbytes, ops, library_ms=None):
+    b_ms, b_by = bound(nbytes, ops)
+    log(f"[kernels] {name}: {ms:.4f} ms/launch (plain {plain_ms:.2f} ms"
+        + ("" if library_ms is None else f", library {library_ms:.4f} ms")
+        + f"), {nbytes} B, {ops} ops, bound {b_ms:.5f} ms by {b_by}")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms}
+
+
+def slice_batch(obj, n: int):
+    """The first n envs of a PhysicsState or PhysicsParams."""
+    cls = type(obj)
+    return cls(**{f: getattr(obj, f)[:n] for f in cls.__dataclass_fields__})
+
+
+def check_finite(state, obs, num_envs, num_obs, what):
+    for name in ("base_pos", "base_quat", "qpos", "qvel"):
+        if not bool(torch.isfinite(getattr(state.physics, name)).all()):
+            raise AssertionError(f"{what}: non-finite {name}")
+    if obs.shape != (num_envs, num_obs) or \
+            not bool(torch.isfinite(obs).all()):
+        raise AssertionError(f"{what}: observations not finite or misshapen")
+
+
+# ------------------------------------------------------------ 1. build
+
+def build_kernels(mc_pf, mc_any):
+    specs = [build.model_spec(mc_pf), build.model_spec(mc_any),
+             build.CHOLESKY_SPEC]
+    t0 = time.perf_counter()
+    libs = build.build_all(specs)
+    log(f"[build] 3 libraries in {time.perf_counter() - t0:.2f} s wall "
+        f"(parallel nvcc)")
+    for what, lib in zip(("PointFoot substep.cu", "ANYmal substep.cu",
+                          "cholesky.cu"), libs):
+        log(f"[build] {what}: {lib.path}: {lib.build_seconds:.2f} s")
+        for line in lib.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"[build]   {line.strip()}")
+
+
+# ------------------------------------------ 2. PointFoot kernels vs plain
+
 def check_rollout(got, want):
     """Hold a kernel rollout (phys, tau, sphere_pos) to the plain one."""
     (gp, gt, gs), (wp, wt, ws) = got, want
@@ -148,28 +261,7 @@ def check_rollout(got, want):
     return errs
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
-    t_start = time.perf_counter()
-    card = card_line()
-    log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
-
-    # ---------------------------------------------------- 1. device, build
-    env = make_env("pointfoot_rough", num_envs=NUM_ENVS,
-                   cfg_patch=policy_eval.FLAGSHIP_PATCH)
-    mc = sp.model_consts(env.model)
-    lib = build.load(mc)
-    log(f"[build] {lib.path}: {lib.build_seconds:.2f} s")
-    for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"[build]   {line.strip()}")
-
-    net = policy_eval.load_actor(env, "pointfoot_rough")
-    policy = policy_eval.inference_policy(net)
-
-    # ------------------------------------------ 2. kernels vs plain versions
+def pointfoot_kernels(env, mc, policy):
     state = env.init_state(0)
     obs = torch.zeros(NUM_ENVS, env.num_obs, device=env.device)
     for _ in range(WARM_STEPS):
@@ -222,38 +314,218 @@ def main() -> int:
         f"{state_err:.3g}, forces {float(force_err.max()):.3g}); "
         f"fk_from_state max |err| {fk_err:.3g}")
 
-    t = {
-        "rollout_ms": cuda_ms(lambda: sp.rollout_step(*step_args), 200),
-        "rollout_plain_ms": cuda_ms(lambda: sp.rollout_step_plain(*step_args),
-                                    3, warmup=1),
-        "fk_ms": cuda_ms(lambda: sp.fk_rows(mc, state_rows), 200),
-        "fk_plain_ms": cuda_ms(lambda: sp.fk_rows_plain(mc, state_rows), 5,
-                               warmup=1),
-    }
     R_state, R_ctrl = state_rows.shape[0], ctrl_rows.shape[0]
-    roll_bytes = 4 * NUM_ENVS * (R_state + R_ctrl + surf_rows.shape[0]
-                                 + R_state + ke.shape[0])
-    roll_ops = count_ops(lambda: sp.rollout_step_plain(*step_args))
+    roll = dict(
+        err=step_err, ms=cuda_ms(lambda: sp.rollout_step(*step_args), 200),
+        plain_ms=cuda_ms(lambda: sp.rollout_step_plain(*step_args), 3,
+                         warmup=1),
+        nbytes=4 * NUM_ENVS * (R_state + R_ctrl + surf_rows.shape[0]
+                               + R_state + ke.shape[0]),
+        ops=count_ops(lambda: sp.rollout_step_plain(*step_args)))
     # the FK reads base_pos, base_quat and qpos (7 + nj rows) and writes
     # 3·nc rows
-    fk_bytes = 4 * NUM_ENVS * (7 + nj + 3 * nc)
-    fk_ops = count_ops(lambda: sp.fk_rows_plain(mc, state_rows))
-    roll_bound, roll_by = bound(roll_bytes, roll_ops)
-    fk_bound, fk_by = bound(fk_bytes, fk_ops)
-    log(f"[kernels] rollout_substep: {t['rollout_ms']:.4f} ms/launch "
-        f"(plain {t['rollout_plain_ms']:.2f} ms), {roll_bytes} B, "
-        f"{roll_ops} ops, bound {roll_bound:.5f} ms by {roll_by}")
-    log(f"[kernels] fk_from_state: {t['fk_ms']:.4f} ms/launch "
-        f"(plain {t['fk_plain_ms']:.2f} ms), {fk_bytes} B, {fk_ops} ops, "
-        f"bound {fk_bound:.5f} ms by {fk_by}")
+    fk = dict(
+        err=fk_err, ms=cuda_ms(lambda: sp.fk_rows(mc, state_rows), 200),
+        plain_ms=cuda_ms(lambda: sp.fk_rows_plain(mc, state_rows), 5,
+                         warmup=1),
+        nbytes=4 * NUM_ENVS * (7 + nj + 3 * nc),
+        ops=count_ops(lambda: sp.fk_rows_plain(mc, state_rows)))
+    return roll, fk, state, xyz
 
-    # ------------------------------------------- 3. rollout at full width
+
+# ------------------------------------ 3. step_batched's kernels vs plain
+
+def bench_signal(env, seed: int = 0):
+    """bench.py's deterministic action signal 0.2 sin(phase + 0.1 t)."""
+    g = torch.Generator(device=env.device).manual_seed(seed)
+    phase = 6.28 * torch.rand(env.num_envs, env.num_actions, generator=g,
+                              device=env.device)
+    return lambda t: 0.2 * torch.sin(phase + 0.1 * t)
+
+
+def step_errors(got: PhysicsState, want: PhysicsState):
+    """Per field: (max |err|, largest share of the allowed error) and the
+    (B,) mask of envs beyond STEP_TOL."""
+    out, beyond = {}, None
+    for name, (atol, rtol) in STEP_TOL.items():
+        g, w = getattr(got, name), getattr(want, name)
+        err = (g - w).abs()
+        share = (err / (atol + rtol * w.abs())).reshape(g.shape[0], -1)
+        out[name] = (float(err.max()), float(share.max()))
+        over = (share > 1.0).any(-1)
+        beyond = over if beyond is None else beyond | over
+    return out, beyond
+
+
+def sphere_surface(env, phys, params):
+    """The surface under each sphere where the plain path queries it: at
+    positions from dynamics.forward_kinematics, in world coordinates."""
+    m = env.model
+    kin = dynamics.forward_kinematics(m, phys, params)
+    p = torch.stack([kin.body_pos[:, b] + kin.body_rot[:, b]
+                     @ m.collision_offset[c]
+                     for c, b in enumerate(m.collision_body)], dim=1)
+    return query_surface(env.height_fn, p[..., 0], p[..., 1])
+
+
+def velocity_system(env, phys, params, tau):
+    """(A_t (nv·nv, B), b_t (nv, B)) that assemble_velocity_solve builds."""
+    A, rhs, _ = dynamics.assemble_velocity_solve(
+        env.model, params, phys, tau, env.height_fn, env.cfg.sim.dt,
+        torch.zeros_like(phys.base_pos), None, env.cfg.sim.gravity)
+    B, nv = rhs.shape
+    return A.reshape(B, nv * nv).t().contiguous(), rhs.t().contiguous()
+
+
+def check_cholesky(A_t, b_t, what):
+    x_k = ch.chol_solve_lanes(A_t, b_t)
+    x_p = ch.chol_solve_lanes_plain(A_t, b_t)
+    torch.cuda.synchronize()
+    err = (x_k - x_p).abs()
+    share = float((err / (CHOL_TOL + CHOL_TOL * x_p.abs())).max())
+    if not share <= 1.0:
+        raise AssertionError(f"chol_solve {what}: max |err| "
+                             f"{float(err.max())} beyond rtol/atol {CHOL_TOL}")
+    log(f"[kernels] chol_solve {what}: max |err| {float(err.max()):.3g} "
+        f"({100 * share:.2g}% of the tolerance)")
+    return float(err.max())
+
+
+def anymal_kernels(env, mc, pf_env, pf_state):
+    dev = env.device
+    signal = bench_signal(env)
+    state = env.init_state(0)
+    for t in range(WARM_STEPS):
+        state, _ = env.step(state, signal(t))
+    g = torch.Generator(device=dev).manual_seed(6)
+    push = 200.0 * (2.0 * torch.rand(NUM_ENVS, 3, generator=g,
+                                     device=dev) - 1.0)
+    phys, params = state.physics, state.params
+    c = env.cfg.control
+    pos_err = signal(WARM_STEPS) * c.action_scale + env.default_qpos \
+        - phys.qpos
+    tau, _ = act.actuator_net_torque(env.actuator_weights,
+                                     state.actuator_carry, pos_err,
+                                     phys.qvel)
+    tau = torch.clamp(tau, -env.torque_limit, env.torque_limit)
+    dt, grav = env.cfg.sim.dt, env.cfg.sim.gravity
+
+    # the mega-kernel route against the plain path on the same device and
+    # state, and the same terrain under each sphere: the route's query at
+    # the FK-xy kernel's positions
+    got = dynamics.step_batched(env.model, params, phys, tau, env.height_fn,
+                                dt, external_force=push, gravity=grav)
+    xy = sp.fk_contact_xy(env.model, phys)
+    surface = query_surface(env.height_fn, xy[..., 0], xy[..., 1])
+    want = dynamics.step(env.model, params, phys, tau, env.height_fn, dt,
+                         external_force=push, gravity=grav, surface=surface)
+    torch.cuda.synchronize()
+    route, beyond = step_errors(got, want)
+    log("[kernels] step_batched mega-kernel route vs plain path, same "
+        "surface, max |err| (share of tolerance): " + json.dumps(
+            {k: f"{e:.3g} ({100 * s:.2g}%)" for k, (e, s) in route.items()}))
+    if bool(beyond.any()):
+        raise AssertionError(f"step_batched: {int(beyond.sum())} envs beyond "
+                             f"the tolerances {STEP_TOL}: {route}")
+    # the plain path querying the terrain itself places each sphere in world
+    # coordinates, a few ulp (~1e-5 m at 100 m) from the route's base-
+    # relative FK: every env that then leaves the tolerance must be one
+    # whose terrain under a sphere differs between the two queries
+    own = dynamics.step(env.model, params, phys, tau, env.height_fn, dt,
+                        external_force=push, gravity=grav)
+    h_own, n_own = sphere_surface(env, phys, params)
+    d_h = (h_own - surface[0]).abs().amax(-1)
+    d_n = (n_own - surface[1]).abs().amax((-1, -2))
+    moved = (d_h > 1e-6) | (d_n > 1e-6)
+    _, beyond_own = step_errors(got, own)
+    if bool((beyond_own & ~moved).any()):
+        raise AssertionError(
+            f"step_batched vs the plain path's own terrain query: "
+            f"{int((beyond_own & ~moved).sum())} envs beyond the tolerances "
+            f"with the same terrain under every sphere")
+    log(f"[kernels] step_batched vs the plain path's own terrain query: "
+        f"{int(beyond_own.sum())} of {NUM_ENVS} envs beyond the tolerances, "
+        f"all with other terrain under a sphere ({int(moved.sum())} envs "
+        f"see a height or normal >1e-6 apart; {int((d_n > 0.1).sum())} a "
+        f"normal flipped at a cell edge)")
+
+    # the substep kernel against its plain twin on the same rows
+    in_rows = sp.pack_substep_in(phys, params, tau, push)
+    surf_rows = sp.pack_surface(surface)
+    k_rows = sp.step_rows(mc, in_rows, surf_rows, dt, grav)
+    p_rows = sp.step_rows_plain(mc, in_rows, surf_rows, dt, grav)
+    fk_in = sp.pack_fk_in(phys)
+    xy_k = sp.fk_xy_rows(mc, fk_in)
+    xy_p = sp.fk_xy_rows_plain(mc, fk_in)
+    torch.cuda.synchronize()
+    sub_err = max_err(k_rows, p_rows)
+    xy_err = max_err(xy_k, xy_p)
+    if not xy_err <= FK_TOL:
+        raise AssertionError(f"fk_contact_xy: max |err| {xy_err} > {FK_TOL}")
+    nj, nc = mc.nj, mc.nc
+    n_state = 13 + 2 * nj
+    log(f"[kernels] substep kernel vs plain twin, max |err| {sub_err:.3g} "
+        f"(state rows {max_err(k_rows[:n_state], p_rows[:n_state]):.3g}); "
+        f"fk_contact_xy max |err| {xy_err:.3g}")
+
+    sub = dict(
+        err=sub_err,
+        ms=cuda_ms(lambda: sp.step_rows(mc, in_rows, surf_rows, dt, grav),
+                   200),
+        plain_ms=cuda_ms(lambda: sp.step_rows_plain(
+            mc, in_rows, surf_rows, dt, grav), 2, warmup=1),
+        nbytes=4 * NUM_ENVS * (in_rows.shape[0] + surf_rows.shape[0]
+                               + k_rows.shape[0]),
+        ops=count_ops(lambda: sp.step_rows_plain(mc, in_rows, surf_rows, dt,
+                                                 grav)))
+    fkxy = dict(
+        err=xy_err, ms=cuda_ms(lambda: sp.fk_xy_rows(mc, fk_in), 200),
+        plain_ms=cuda_ms(lambda: sp.fk_xy_rows_plain(mc, fk_in), 5,
+                         warmup=1),
+        nbytes=4 * NUM_ENVS * (7 + nj + 2 * nc),
+        ops=count_ops(lambda: sp.fk_xy_rows_plain(mc, fk_in)))
+
+    # the Cholesky kernel on the velocity systems of 2048 envs of each robot
+    n = CHOL_ENVS
+    A_t, b_t = velocity_system(env, slice_batch(phys, n),
+                               slice_batch(params, n), tau[:n])
+    chol_err = check_cholesky(A_t, b_t, f"ANYmal n=18 B={n}")
+    pf_A, pf_b = velocity_system(
+        pf_env, slice_batch(pf_state.physics, n),
+        slice_batch(pf_state.params, n), pf_state.torques[:n])
+    chol_err = max(chol_err,
+                   check_cholesky(pf_A, pf_b, f"PointFoot n=12 B={n}"))
+    nv = 18
+    A = A_t.t().reshape(n, nv, nv).contiguous()
+    b = b_t.t().contiguous()
+
+    def library():
+        return torch.cholesky_solve(b[..., None], torch.linalg.cholesky(A))
+
+    chol = dict(
+        err=chol_err, ms=cuda_ms(lambda: ch.chol_solve_lanes(A_t, b_t), 200),
+        plain_ms=cuda_ms(lambda: ch.chol_solve_lanes_plain(A_t, b_t), 5,
+                         warmup=1),
+        nbytes=4 * n * (nv * nv + 2 * nv),
+        ops=count_ops(lambda: ch.chol_solve_lanes_plain(A_t, b_t)),
+        library_ms=cuda_ms(library, 50))
+    pf_ms = cuda_ms(lambda: ch.chol_solve_lanes(pf_A, pf_b), 200)
+    log(f"[kernels] chol_solve at PointFoot n=12 B={n}: {pf_ms:.4f} "
+        f"ms/launch")
+    layers_in = dict(state=state, signal=signal, xy=xy, tau=tau, push=push)
+    return sub, fkxy, chol, layers_in
+
+
+# ---------------------------------------------- 4. PointFoot at full width
+
+def pointfoot_rollout(env, mc, policy, xyz):
+    c = env.cfg.control
     state = env.init_state(1)
     obs = torch.zeros(NUM_ENVS, env.num_obs, device=env.device)
     state, out = env.step(state, policy(obs))
     obs = out.obs
     torch.cuda.synchronize()
-    sp.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     falls = torch.zeros((), dtype=torch.int64, device=env.device)
     for _ in range(ROLLOUT_STEPS):
@@ -262,25 +534,16 @@ def main() -> int:
         falls += out.extras["terminate"].sum()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"rollout_substep": sp.rollout_step.launches,
-                "fk_from_state": sp.fk_rows.launches}
-    expect = {"rollout_substep": c.decimation * ROLLOUT_STEPS,
-              "fk_from_state": ROLLOUT_STEPS}
-    if launches != expect:
-        raise AssertionError(f"launch counts {launches} != {expect}")
-    for name in ("base_pos", "base_quat", "qpos", "qvel"):
-        if not bool(torch.isfinite(getattr(state.physics, name)).all()):
-            raise AssertionError(f"non-finite {name} after the rollout")
-    if obs.shape != (NUM_ENVS, env.num_obs) or \
-            not bool(torch.isfinite(obs).all()):
-        raise AssertionError("observations not finite or misshapen")
+    launches = read_counts()
+    expect_counts(launches, rollout_substep=c.decimation * ROLLOUT_STEPS,
+                  fk_from_state=ROLLOUT_STEPS)
+    check_finite(state, obs, NUM_ENVS, env.num_obs, "pointfoot rollout")
     step_ms = wall / ROLLOUT_STEPS * 1e3
-    log(f"[rollout] {ROLLOUT_STEPS} steps x {NUM_ENVS} envs in {wall:.2f} s: "
-        f"{ROLLOUT_STEPS * NUM_ENVS / wall:.0f} env-steps/s, "
-        f"{step_ms:.2f} ms/step, terminations {int(falls)}, "
+    log(f"[rollout] pointfoot_rough {ROLLOUT_STEPS} steps x {NUM_ENVS} envs "
+        f"in {wall:.2f} s: {ROLLOUT_STEPS * NUM_ENVS / wall:.0f} "
+        f"env-steps/s, {step_ms:.2f} ms/step, terminations {int(falls)}, "
         f"launches {launches}")
 
-    # where a step's time goes, by layer (CUDA events, same state)
     acts = policy(obs)
     layers = {
         "env.step": cuda_ms(lambda: env.step(state, acts), 10),
@@ -292,11 +555,8 @@ def main() -> int:
         "height scan (121 points)": cuda_ms(
             lambda: env._measured_heights(state.physics), 10),
     }
-    kernel_ms = c.decimation * t["rollout_ms"] + t["fk_ms"]
-    log("[layers] ms: " + json.dumps(
-        {k: round(v, 3) for k, v in layers.items()})
-        + f"; kernels {kernel_ms:.3f} ms/step = "
-        f"{100 * kernel_ms / layers['env.step']:.2f}% of env.step")
+    log("[layers] pointfoot_rough ms: " + json.dumps(
+        {k: round(v, 3) for k, v in layers.items()}))
 
     probe_env = policy_eval.make_eval_env(
         "pointfoot_rough", NUM_ENVS, policy_eval.FLAGSHIP_PATCH)
@@ -304,18 +564,153 @@ def main() -> int:
     log(f"[probe] {json.dumps(rec)}")
     if not (rec["falls"] <= NUM_ENVS and rec["mean_vx"] >= 0.15):
         raise AssertionError(f"probe outside its band: {rec}")
+    return launches
+
+
+# -------------------------------------------- 5. anymal_c_rough, 4096 envs
+
+def anymal_rollout(env, lay):
+    c = env.cfg.control
+    signal = lay["signal"]
+    state = env.init_state(1)
+    state, out = env.step(state, signal(0))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    falls = torch.zeros((), dtype=torch.int64, device=env.device)
+    for t in range(1, ANYMAL_STEPS + 1):
+        state, out = env.step(state, signal(t))
+        falls += out.extras["terminate"].sum()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    expect_counts(launches, substep=c.decimation * ANYMAL_STEPS,
+                  fk_contact_xy=c.decimation * ANYMAL_STEPS)
+    check_finite(state, out.obs, NUM_ENVS, env.num_obs, "anymal rollout")
+    if not bool(torch.isfinite(out.reward).all()):
+        raise AssertionError("anymal rollout: non-finite reward")
+    log(f"[anymal] anymal_c_rough {ANYMAL_STEPS} steps x {NUM_ENVS} envs in "
+        f"{wall:.2f} s: {ANYMAL_STEPS * NUM_ENVS / wall:.0f} env-steps/s, "
+        f"{wall / ANYMAL_STEPS * 1e3:.2f} ms/step, terminations "
+        f"{int(falls)}, launches {launches}")
+
+    # where a step's time goes, by layer (CUDA events, same state)
+    phys, params = state.physics, state.params
+    a = signal(0)
+    pos_err = a * c.action_scale + env.default_qpos - phys.qpos
+    xy = lay["xy"]
+    layers = {
+        "env.step": cuda_ms(lambda: env.step(state, a), 10),
+        "actuator net (one substep)": cuda_ms(
+            lambda: act.actuator_net_torque(
+                env.actuator_weights, state.actuator_carry, pos_err,
+                phys.qvel), 20),
+        "step_batched (kernels + surface query, one substep)": cuda_ms(
+            lambda: dynamics.step_batched(
+                env.model, params, phys, lay["tau"], env.height_fn,
+                env.cfg.sim.dt, external_force=lay["push"],
+                gravity=env.cfg.sim.gravity), 20),
+        "surface query (13 spheres)": cuda_ms(
+            lambda: query_surface(env.height_fn, xy[..., 0], xy[..., 1]),
+            20),
+        "height scan (187 points)": cuda_ms(
+            lambda: env._measured_heights(phys), 10),
+    }
+    log("[layers] anymal_c_rough ms: " + json.dumps(
+        {k: round(v, 3) for k, v in layers.items()}))
+    return launches
+
+
+def physical_gate():
+    env = make_env("anymal_c_rough", num_envs=NUM_ENVS, cfg_patch=GATE_PATCH)
+    state = env.init_state(2)
+    zeros = torch.zeros(NUM_ENVS, env.num_actions, device=env.device)
+    terminated = torch.zeros(NUM_ENVS, dtype=torch.bool, device=env.device)
+    for _ in range(GATE_STEPS):
+        state, out = env.step(state, zeros)
+        terminated |= out.extras["terminate"]
+    p = state.physics.base_pos
+    h = p[:, 2] - env.terrain.height_at(p[:, 0], p[:, 1])
+    rec = {"mean_height": float(h.mean()), "min_height": float(h.min()),
+           "terminated": float(terminated.float().mean()),
+           "levels": sorted({int(v) for v in state.terrain_level})}
+    log(f"[gate] anymal_c_rough level 0, zero actions, 2 s: "
+        f"{json.dumps(rec)}")
+    lo, hi = GATE_MEAN_HEIGHT
+    if not (lo <= rec["mean_height"] <= hi
+            and rec["terminated"] <= GATE_MAX_TERMINATED):
+        raise AssertionError(f"physical gate outside its band: {rec}")
+
+
+# ---------------------------------- 6. the Cholesky route, 2048 envs
+
+def cholesky_route():
+    env = make_env("anymal_c_rough", num_envs=CHOL_ENVS,
+                   cfg_patch=ANYMAL_PATCH)
+    signal = bench_signal(env)
+    state = env.init_state(3)
+    state, _ = env.step(state, signal(0))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for t in range(1, CHOL_STEPS + 1):
+        state, out = env.step(state, signal(t))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    expect_counts(launches,
+                  chol_solve=env.cfg.control.decimation * CHOL_STEPS)
+    check_finite(state, out.obs, CHOL_ENVS, env.num_obs, "cholesky route")
+    log(f"[cholesky-route] anymal_c_rough {CHOL_STEPS} steps x {CHOL_ENVS} "
+        f"envs in {wall:.2f} s: {CHOL_STEPS * CHOL_ENVS / wall:.0f} "
+        f"env-steps/s, {wall / CHOL_STEPS * 1e3:.2f} ms/step, launches "
+        f"{launches}")
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+    pf_env = make_env("pointfoot_rough", num_envs=NUM_ENVS,
+                      cfg_patch=policy_eval.FLAGSHIP_PATCH)
+    any_env = make_env("anymal_c_rough", num_envs=NUM_ENVS,
+                       cfg_patch=ANYMAL_PATCH)
+    mc_pf = sp.model_consts(pf_env.model)
+    mc_any = sp.model_consts(any_env.model)
+    build_kernels(mc_pf, mc_any)
+    policy = policy_eval.inference_policy(
+        policy_eval.load_actor(pf_env, "pointfoot_rough"))
+
+    roll, fk, pf_state, xyz = pointfoot_kernels(pf_env, mc_pf, policy)
+    sub, fkxy, chol, lay = anymal_kernels(any_env, mc_any, pf_env,
+                                          pf_state)
+    log(f"[t] kernels checked at {time.perf_counter() - t_start:.1f} s")
+    pf_launches = pointfoot_rollout(pf_env, mc_pf, policy, xyz)
+    any_launches = anymal_rollout(any_env, lay)
+    physical_gate()
+    chol_launches = cholesky_route()
 
     kernels = [
-        {"name": "rollout_substep_kernel", "route": "cuda", "source": SOURCE,
-         "replaces": "pointfoot_tpu/ops/pallas/substep.py:273",
-         "launches": launches["rollout_substep"], "max_abs_err": step_err,
-         "ms": t["rollout_ms"], "plain_ms": t["rollout_plain_ms"],
-         "bound_ms": roll_bound, "bound_by": roll_by, "library_ms": None},
-        {"name": "fk_from_state_kernel", "route": "cuda", "source": SOURCE,
-         "replaces": "pointfoot_tpu/ops/pallas/substep.py:328",
-         "launches": launches["fk_from_state"], "max_abs_err": fk_err,
-         "ms": t["fk_ms"], "plain_ms": t["fk_plain_ms"],
-         "bound_ms": fk_bound, "bound_by": fk_by, "library_ms": None},
+        kernel_record("rollout_substep_kernel", SUBSTEP_SRC,
+                      "pointfoot_tpu/ops/pallas/substep.py:273",
+                      pf_launches["rollout_substep"], **roll),
+        kernel_record("fk_from_state_kernel", SUBSTEP_SRC,
+                      "pointfoot_tpu/ops/pallas/substep.py:328",
+                      pf_launches["fk_from_state"], **fk),
+        kernel_record("substep_kernel", SUBSTEP_SRC,
+                      "pointfoot_tpu/ops/pallas/substep.py:65",
+                      any_launches["substep"], **sub),
+        kernel_record("fk_contact_xy_kernel", SUBSTEP_SRC,
+                      "pointfoot_tpu/ops/pallas/substep.py:201",
+                      any_launches["fk_contact_xy"], **fkxy),
+        kernel_record("chol_solve_kernel", CHOL_SRC,
+                      "pointfoot_tpu/ops/pallas/cholesky.py:35",
+                      chol_launches["chol_solve"], **chol),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

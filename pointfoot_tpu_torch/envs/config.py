@@ -2,10 +2,11 @@
 
 Frozen dataclasses, overlaid with `override` (base -> robot -> terrain
 variant).  Reward scales are a tuple of (name, scale); only non-zero
-entries select reward terms.  Only the fields the ported slice reads are
+entries select reward terms.  Only the fields the ported slices read are
 here; the JAX package's other knobs (command curriculum, low-command
 oversampling, alternative promotion/demotion rules, relative tracking
-width, ...) arrive with the slices that implement them.
+width, PPO and runner settings, ...) arrive with the slices that implement
+them.
 """
 
 from __future__ import annotations
@@ -77,6 +78,8 @@ class DomainRandCfg:
 @dataclass(frozen=True)
 class RewardsCfg:
     scales: Tuple[Tuple[str, float], ...] = ()
+    # clip the weighted sum at 0 before the termination term is added
+    only_positive_rewards: bool = False
     # guard band on the per-step total reward and per-term values (not
     # reference semantics; healthy per-step magnitudes are O(1))
     clip_reward: float = 20.0
@@ -107,6 +110,7 @@ class NormalizationCfg:
 class NoiseCfg:
     add_noise: bool = True
     noise_level: float = 1.0
+    lin_vel: float = 0.1
     ang_vel: float = 0.2
     gravity: float = 0.05
     dof_pos: float = 0.01
@@ -124,8 +128,11 @@ class SimCfg:
 
 @dataclass(frozen=True)
 class HeightScanCfg:
-    """Critic-only height scan grid: 11 x 11 points over ±0.5 m."""
+    """Height scan grid, by default 11 x 11 points over ±0.5 m: the
+    critic's privileged input (PointFoot) or the tail of the actor's
+    observation (LeggedRobot family)."""
 
+    measure_heights: bool = True
     points_x: Tuple[float, ...] = tuple(-0.5 + 0.1 * i for i in range(11))
     points_y: Tuple[float, ...] = tuple(-0.5 + 0.1 * i for i in range(11))
 

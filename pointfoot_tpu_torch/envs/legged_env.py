@@ -1,17 +1,20 @@
 """Vectorized legged-robot environment (pointfoot_tpu/envs/legged_env.py).
 
-PointFoot observation style on procedural terrain.  `step` is a state
-transition over dataclasses of tensors; resets, curricula, command
-resampling and pushes are masked updates, so a step never waits on the
-host.  Random draws come from the env's `torch.Generator`, seeded by
+PointFoot and LeggedRobot observation styles on procedural terrain.  `step`
+is a state transition over dataclasses of tensors; resets, curricula,
+command resampling and pushes are masked updates, so a step never waits on
+the host.  Random draws come from the env's `torch.Generator`, seeded by
 `init_state`; they cannot reproduce the JAX package's threefry streams, so
 parity tests start both from one JAX-made state and compare deterministic
 stretches.
 
-The decimation loop always runs through ops/cuda/substep.rollout_substeps:
-the CUDA kernels on the card, their plain versions on the CPU.  Not ported
-yet (later slices): the LeggedRobot observation style, the actuator
-network, plane and table terrain.
+The decimation loop takes one of two paths, as the JAX env does
+(pointfoot_tpu/envs/legged_env.py:442-499): the fused rollout
+(ops/cuda/substep.rollout_substeps) for PD control at MEGA_MIN_BATCH envs or
+more, else the scan path, a loop of physics/dynamics.step_batched substeps
+with the torque of the PD law or of the actuator network.  Either runs the
+CUDA kernels on the card and their plain versions on the CPU.  Not ported
+yet (later slices): plane and table terrain.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from pointfoot_tpu_torch.device import resolve_device
 from pointfoot_tpu_torch.envs.config import LeggedEnvCfg
 from pointfoot_tpu_torch.ops import quat as quat_ops
 from pointfoot_tpu_torch.ops.cuda.substep import rollout_substeps
+from pointfoot_tpu_torch.physics import actuator as act
+from pointfoot_tpu_torch.physics import dynamics
 from pointfoot_tpu_torch.physics.assets import get_model
 from pointfoot_tpu_torch.physics.model import PhysicsParams, PhysicsState
 from pointfoot_tpu_torch.terrain.procedural import build_procedural
@@ -58,6 +63,8 @@ class EnvState:
     last_max_feet_height: torch.Tensor  # (B, nf)
     last_contacts: torch.Tensor  # (B, nf) bool
     push_force: torch.Tensor  # (B, 3) world force queued for next substep 0
+    # (B, nj, LAYERS, 2, HIDDEN) actuator-network state, (B, 0) without one
+    actuator_carry: torch.Tensor
     episode_sums: torch.Tensor  # (B, n_terms)
     terminate: torch.Tensor  # (B,) bool: contact (or NaN) termination
     time_out: torch.Tensor  # (B,) bool
@@ -83,11 +90,8 @@ class LeggedEnv:
 
     def __init__(self, cfg: LeggedEnvCfg, device=None):
         self.device = resolve_device(device)
-        if cfg.obs_style != "pointfoot":
-            raise NotImplementedError(
-                f"obs_style '{cfg.obs_style}' is not ported yet")
-        if cfg.control.use_actuator_network:
-            raise NotImplementedError("the actuator network is not ported yet")
+        if cfg.obs_style not in ("pointfoot", "legged"):
+            raise ValueError(f"unknown obs_style '{cfg.obs_style}'")
         if cfg.terrain.mesh_type == "plane":
             raise NotImplementedError("plane terrain is not ported yet")
         if not cfg.terrain.procedural:
@@ -159,6 +163,7 @@ class LeggedEnv:
         self.height_points = torch.from_numpy(np.stack(
             [gx.ravel(), gy.ravel(), np.zeros_like(gx.ravel())], -1)).to(dev)
         self.num_height_points = self.height_points.shape[0]
+        self.measure_heights = cfg.height_scan.measure_heights
 
         # reward table: (name, scale * dt)
         scales = dict(cfg.rewards.scales)
@@ -169,6 +174,9 @@ class LeggedEnv:
         self.reward_names = tuple(n for n, _ in self.reward_terms) + (
             ("termination",) if self.termination_scale else ())
 
+        self.use_actuator_net = cfg.control.use_actuator_network
+        if self.use_actuator_net:
+            self.actuator_weights = act.load_anydrive_weights(dev)
         self.push_interval = int(np.ceil(
             cfg.domain_rand.push_interval_s / self.dt))
         self.resample_interval = int(cfg.commands.resampling_time / self.dt)
@@ -190,17 +198,35 @@ class LeggedEnv:
     # ------------------------------------------------------------------ init
 
     def _build_noise_vec(self) -> np.ndarray:
+        """Noise magnitudes aligned to the observation layout of the style
+        (`_compute_observations`)."""
         n = self.cfg.noise
         s = self.cfg.normalization
         nj, na = self.model.nj, self.num_actions
-        vec = np.concatenate([
+        legged = self.cfg.obs_style == "legged"
+        parts = []
+        if legged:
+            parts.append(np.full(3, n.lin_vel * n.noise_level
+                                 * s.lin_vel_scale))
+        parts += [
             np.full(3, n.ang_vel * n.noise_level * s.ang_vel_scale),
             np.full(3, n.gravity * n.noise_level),
+        ]
+        if legged:
+            parts.append(np.zeros(3))  # commands
+        parts += [
             np.full(nj, n.dof_pos * n.noise_level * s.dof_pos_scale),
             np.full(nj, n.dof_vel * n.noise_level * s.dof_vel_scale),
             np.zeros(na),  # previous actions
-            np.zeros(3),  # commands
-        ]).astype(np.float32)
+        ]
+        if not legged:
+            parts.append(np.zeros(3))  # commands last (PointFoot layout)
+        vec = np.concatenate(parts).astype(np.float32)
+        if legged and self.measure_heights and self.num_obs > len(vec):
+            vec = np.concatenate([vec, np.full(
+                self.num_height_points,
+                n.height_measurements * n.noise_level * s.height_meas_scale,
+                np.float32)])
         return vec[: self.num_obs]
 
     def _uniform(self, shape, lo, hi) -> torch.Tensor:
@@ -292,6 +318,8 @@ class LeggedEnv:
             last_max_feet_height=zeros(B, self.nf),
             last_contacts=zeros(B, self.nf, dtype=torch.bool),
             push_force=zeros(B, 3),
+            actuator_carry=(act.init_carry((B, m.nj), dev)
+                            if self.use_actuator_net else zeros(B, 0)),
             episode_sums=zeros(B, len(self.reward_names)),
             terminate=zeros(B, dtype=torch.bool),
             time_out=zeros(B, dtype=torch.bool),
@@ -302,16 +330,57 @@ class LeggedEnv:
 
     # ------------------------------------------------------------- internals
 
+    def _compute_torques(self, actions, qpos, qvel, last_qvel, params):
+        """PD torque law (P, V or T), clipped to the effort limits."""
+        c = self.cfg.control
+        scaled = actions * c.action_scale
+        if c.control_type == "P":
+            tau = params.kp * (scaled + self.default_qpos - qpos) \
+                - params.kd * qvel
+        elif c.control_type == "V":
+            tau = params.kp * (scaled - qvel) - params.kd * (
+                qvel - last_qvel) / self.cfg.sim.dt
+        elif c.control_type == "T":
+            tau = scaled
+        else:
+            raise NameError(f"Unknown controller type: {c.control_type}")
+        return torch.clamp(tau, -self.torque_limit, self.torque_limit)
+
     def _physics_rollout(self, state: EnvState, actions: torch.Tensor):
         """Decimation loop: torques recomputed each substep, the queued push
-        applied on substep 0 only.  Returns (physics, last torques, sphere
-        positions of the final state)."""
+        applied on substep 0 only.  Returns (physics, last torques,
+        actuator carry, sphere positions of the final state or None)."""
         c = self.cfg.control
-        return rollout_substeps(
-            self.model, state.params, state.physics, actions,
-            state.last_qvel, state.push_force, self.height_fn,
-            self.cfg.sim.dt, c.decimation, self.default_qpos_values,
-            c.action_scale, c.control_type, gravity=self.cfg.sim.gravity)
+        sim_dt = self.cfg.sim.dt
+        if not self.use_actuator_net and \
+                self.num_envs >= dynamics.MEGA_MIN_BATCH:
+            phys, tau, sphere_pos = rollout_substeps(
+                self.model, state.params, state.physics, actions,
+                state.last_qvel, state.push_force, self.height_fn, sim_dt,
+                c.decimation, self.default_qpos_values, c.action_scale,
+                c.control_type, gravity=self.cfg.sim.gravity)
+            return phys, tau, state.actuator_carry, sphere_pos
+
+        # the scan path: one step_batched per substep
+        phys, last_qvel = state.physics, state.last_qvel
+        act_carry = state.actuator_carry
+        no_push = torch.zeros_like(state.push_force)
+        for i in range(c.decimation):
+            if self.use_actuator_net:
+                pos_err = (actions * c.action_scale + self.default_qpos
+                           - phys.qpos)
+                tau, act_carry = act.actuator_net_torque(
+                    self.actuator_weights, act_carry, pos_err, phys.qvel)
+                tau = torch.clamp(tau, -self.torque_limit, self.torque_limit)
+            else:
+                tau = self._compute_torques(actions, phys.qpos, phys.qvel,
+                                            last_qvel, state.params)
+            new_phys = dynamics.step_batched(
+                self.model, state.params, phys, tau, self.height_fn, sim_dt,
+                external_force=state.push_force if i == 0 else no_push,
+                gravity=self.cfg.sim.gravity)
+            phys, last_qvel = new_phys, phys.qvel
+        return phys, tau, act_carry, None
 
     def _base_frame_quantities(self, phys: PhysicsState):
         q = phys.base_quat
@@ -321,8 +390,21 @@ class LeggedEnv:
             q, q.new_tensor(GRAVITY_VEC).expand(phys.base_pos.shape))
         return base_lin_vel, base_ang_vel, proj_grav
 
+    def _foot_positions(self, phys: PhysicsState, params) -> torch.Tensor:
+        """(B, nf, 3) world foot-sphere centers by forward kinematics."""
+        m = self.model
+        kin = dynamics.forward_kinematics(m, phys, params)
+        return torch.stack([
+            kin.body_pos[:, m.collision_body[c]]
+            + kin.body_rot[:, m.collision_body[c]] @ m.collision_offset[c]
+            for c in self.feet_idx], dim=1)
+
     def _measured_heights(self, phys: PhysicsState) -> torch.Tensor:
-        """(B, P) terrain heights at the yaw-rotated scan grid."""
+        """(B, P) terrain heights at the yaw-rotated scan grid; zeros when
+        the config measures none."""
+        if not self.measure_heights:
+            return phys.base_pos.new_zeros(phys.base_pos.shape[0],
+                                           self.num_height_points)
         pts = quat_ops.apply_yaw(
             phys.base_quat[:, None, :], self.height_points[None, :, :]
         ) + phys.base_pos[:, None, :]
@@ -344,7 +426,8 @@ class LeggedEnv:
         state = state.replace(actions=actions)
 
         # --- physics (decimation substeps)
-        phys, torques, sphere_pos = self._physics_rollout(state, actions)
+        phys, torques, act_carry, sphere_pos = self._physics_rollout(
+            state, actions)
         # curriculum credit: velocity along the commanded direction, with
         # the commands active during this tick's substeps (pre-resample)
         cmd_xy = state.commands[:, :2]
@@ -359,7 +442,7 @@ class LeggedEnv:
             0.0)
         # the push was consumed by substep 0
         state = state.replace(
-            physics=phys, torques=torques,
+            physics=phys, torques=torques, actuator_carry=act_carry,
             push_force=torch.zeros_like(state.push_force),
             episode_step=state.episode_step + 1,
             common_step=state.common_step + 1,
@@ -369,7 +452,8 @@ class LeggedEnv:
         base_lin_vel, base_ang_vel, proj_grav = \
             self._base_frame_quantities(phys)
         feet = list(self.feet_idx)
-        foot_pos = sphere_pos[:, feet, :]
+        foot_pos = (sphere_pos[:, feet, :] if sphere_pos is not None
+                    else self._foot_positions(phys, state.params))
         measured_heights = self._measured_heights(phys)
         contact_force = phys.contact_force  # (B, nc, 3)
         feet_force = contact_force[:, feet, :]
@@ -401,9 +485,18 @@ class LeggedEnv:
         # --- commands: resample / heading controller
         state = self._update_commands(state, phys)
 
-        # --- pushes: a world force queued for the next substep 0, with
-        # F_max = mean base mass * max_push_vel / sim_dt
-        if cfg.domain_rand.push_robots:
+        # --- pushes: PointFoot queues a world force for the next substep 0,
+        # with F_max = mean base mass * max_push_vel / sim_dt; the
+        # LeggedRobot family sets the base velocity
+        if cfg.domain_rand.push_robots and cfg.obs_style == "legged":
+            push_step = (state.common_step % self.push_interval) == 0
+            vmax = cfg.domain_rand.max_push_vel_xy
+            vel_xy = self._uniform((B, 2), -vmax, vmax)
+            new_lin = torch.cat([vel_xy, phys.base_lin_vel[:, 2:]], dim=-1)
+            phys = dataclasses.replace(phys, base_lin_vel=torch.where(
+                push_step, new_lin, phys.base_lin_vel))
+            state = state.replace(physics=phys)
+        elif cfg.domain_rand.push_robots:
             push_step = (state.common_step % self.push_interval) == 0
             mean_mass = torch.mean(self.model.mass[0]
                                    + state.params.added_mass)
@@ -481,16 +574,26 @@ class LeggedEnv:
     def _compute_observations(self, state: EnvState,
                               measured_heights: torch.Tensor):
         """PointFoot order: [ω·0.25, g_proj, q − q_def, q̇·0.05, a_prev,
-        cmd·scale]; privileged obs append the clipped height scan."""
+        cmd·scale]; LeggedRobot order: [v·2, ω·0.25, g_proj, cmd·scale,
+        q − q_def, q̇·0.05, a_prev].  The clipped height scan follows where
+        num_observations (actor) or num_privileged_obs (critic) has room
+        for it."""
         cfg = self.cfg
         phys = state.physics
-        _, base_ang_vel, proj_grav = self._base_frame_quantities(phys)
+        base_lin_vel, base_ang_vel, proj_grav = \
+            self._base_frame_quantities(phys)
         s = cfg.normalization
-        obs = torch.cat([
-            base_ang_vel * s.ang_vel_scale, proj_grav,
-            (phys.qpos - self.default_qpos) * s.dof_pos_scale,
-            phys.qvel * s.dof_vel_scale, state.actions,
-            state.commands[:, :3] * self.cmd_scale], dim=-1)
+        q_rel = (phys.qpos - self.default_qpos) * s.dof_pos_scale
+        qd = phys.qvel * s.dof_vel_scale
+        cmd = state.commands[:, :3] * self.cmd_scale
+        if cfg.obs_style == "legged":
+            parts = [base_lin_vel * s.lin_vel_scale,
+                     base_ang_vel * s.ang_vel_scale, proj_grav, cmd, q_rel,
+                     qd, state.actions]
+        else:
+            parts = [base_ang_vel * s.ang_vel_scale, proj_grav, q_rel, qd,
+                     state.actions, cmd]
+        obs = torch.cat(parts, dim=-1)
         heights = None
         if (self.num_privileged_obs or 0) > obs.shape[-1] or \
                 self.num_obs > obs.shape[-1]:
@@ -545,6 +648,8 @@ class LeggedEnv:
             r = REWARD_FNS[name](self, ctx) * scale
             total = total + r
             values.append(r)
+        if self.cfg.rewards.only_positive_rewards:
+            total = torch.clamp_min(total, 0.0)
         if self.termination_scale:
             r = _reward_termination(self, ctx) * (
                 self.termination_scale * self.dt)
@@ -661,6 +766,9 @@ class LeggedEnv:
             last_max_feet_height=clear(state.last_max_feet_height),
             last_contacts=clear(state.last_contacts),
             episode_sums=clear(state.episode_sums),
+            actuator_carry=torch.where(
+                done.reshape((B,) + (1,) * (state.actuator_carry.dim() - 1)),
+                0.0, state.actuator_carry),
         )
         # fresh episodes get fresh commands
         return self._resample_commands(state, done)
@@ -768,9 +876,16 @@ def _reward_tracking_ang_vel(env, ctx):
 
 
 def _reward_feet_air_time(env, ctx):
-    """Band penalty on the swing time at first contact."""
+    """PointFoot: band penalty on the swing time at first contact.
+    LeggedRobot family: (air time − 0.5) at first contact, gated on a
+    nonzero command."""
     fc = ctx["first_contact"].to(torch.float32)
     air = ctx["feet_air_time"]
+    if env.cfg.obs_style == "legged":
+        rew = ((air - 0.5) * fc).sum(-1)
+        moving = torch.linalg.vector_norm(
+            ctx["state"].commands[:, :2], dim=-1) > 0.1
+        return rew * moving
     r = env.cfg.rewards
     below = (torch.clamp_max(air - r.min_feet_air_time, 0.0) * fc).sum(-1)
     above = (torch.clamp_max(r.max_feet_air_time - air, 0.0) * fc).sum(-1)
@@ -798,8 +913,12 @@ def _reward_feet_stumble(env, ctx):
 
 
 def _reward_stand_still(env, ctx):
-    """Elementwise command gate (PointFoot semantics)."""
+    """PointFoot: base velocity under an elementwise command gate.
+    LeggedRobot family: joint displacement at a near-zero command."""
     cmd = ctx["state"].commands
+    if env.cfg.obs_style == "legged":
+        still = torch.linalg.vector_norm(cmd[:, :2], dim=-1) < 0.1
+        return torch.abs(ctx["phys"].qpos - env.default_qpos).sum(-1) * still
     rew_lin = torch.abs(ctx["base_lin_vel"][:, :2]) * (cmd[:, :2] < 0.1)
     rew_ang = torch.abs(ctx["base_ang_vel"][:, 2:3]) * (cmd[:, 2:3] < 0.1)
     return torch.cat([rew_lin, rew_ang], dim=-1).sum(-1)

@@ -1,21 +1,31 @@
 """Build and bind the CUDA kernels of csrc/ (plain C interface, ctypes).
 
-The model's constants are written into a generated header, pf_model.h, so
-one build serves one robot.  Sources, header and flags are hashed; the
-shared library lands in `_build/<hash>/` of the package on first use and is
-reused while none of them change.  `nvcc` comes from the PATH or
-`$CUDA_HOME/bin` (default /usr/local/cuda).
+Two libraries, each built from one source:
+
+- substep.cu (with rowdyn.cuh) once per robot: the model's constants are
+  written into a generated header, pf_model.h, so PointFoot and ANYmal each
+  get their own library;
+- cholesky.cu once, with no model header.
+
+Sources, the csrc/ headers, the generated header and the flags are hashed;
+a library lands in `_build/<hash>/` of the package on first use and is
+reused while none of them change.  `build_all` compiles several at once,
+one `nvcc` process each.  `nvcc` comes from the PATH or `$CUDA_HOME/bin`
+(default /usr/local/cuda).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 from pointfoot_tpu_torch.physics.contact import MAX_DEPENETRATION_VEL, PEN_REST
 from pointfoot_tpu_torch.physics.rowdyn import ModelConsts
@@ -24,7 +34,6 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCE = os.path.join(CSRC, "substep.cu")
 # -fmad=false: no contraction of a*b+c into one FMA, so the kernels round
 # as their plain PyTorch versions do.  With contraction, a 4-substep rollout
 # at 4096 envs on an H100 drifted up to 4.5e-3 rad/s in qvel from the plain
@@ -120,19 +129,49 @@ def _nvcc() -> str:
     return path
 
 
+class BuildSpec(NamedTuple):
+    """One shared library: a source of csrc/ and its generated header."""
+
+    source: str  # file name under csrc/
+    header: Optional[str]  # pf_model.h text, or None
+    libname: str
+
+    def key(self) -> str:
+        h = hashlib.sha256()
+        for path in [os.path.join(CSRC, self.source)] + sorted(
+                glob.glob(os.path.join(CSRC, "*.cuh"))):
+            with open(path, "rb") as f:
+                h.update(f.read())
+        h.update((self.header or "").encode())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return h.hexdigest()[:16]
+
+    def path(self) -> str:
+        return os.path.join(BUILD_DIR, self.key(), f"lib{self.libname}.so")
+
+
 class KernelLibrary:
-    """The built shared library with its C entry points typed for ctypes."""
+    """A built shared library and how long its build took."""
 
     def __init__(self, path: str, build_seconds: float, log: str):
         self.path = path
         self.build_seconds = build_seconds
         self.log = log
-        lib = ctypes.CDLL(path)
+        self.lib = ctypes.CDLL(path)
+
+
+class ModelLibrary(KernelLibrary):
+    """substep.cu for one robot, with its C entry points typed."""
+
+    def __init__(self, path: str, build_seconds: float, log: str):
+        super().__init__(path, build_seconds, log)
+        lib = self.lib
         lib.pf_layout.argtypes = [_P]
         lib.pf_layout.restype = None
-        layout = (ctypes.c_int * 6)()
+        layout = (ctypes.c_int * 9)()
         lib.pf_layout(layout)
-        # nj, nc, state rows, control rows, surface rows, extra rows
+        # nj, nc, rollout state, rollout control, surface, rollout extra,
+        # substep input, substep output and FK input rows
         self.layout = tuple(layout)
 
         class JointVec(ctypes.Structure):  # PfJointVec, passed by value
@@ -142,41 +181,83 @@ class KernelLibrary:
         lib.pf_rollout_substep.argtypes = [
             _P, _P, _P, _P, _P, _I, _I, _I, JointVec, _F, _F, _F, _P]
         lib.pf_rollout_substep.restype = _I
+        lib.pf_substep.argtypes = [_P, _P, _P, _I, _F, _F, _P]
+        lib.pf_substep.restype = _I
         lib.pf_fk_from_state.argtypes = [_P, _P, _I, _P]
         lib.pf_fk_from_state.restype = _I
-        self.lib = lib
+        lib.pf_fk_contact_xy.argtypes = [_P, _P, _I, _P]
+        lib.pf_fk_contact_xy.restype = _I
 
 
-_LIBS: Dict[int, Tuple[ModelConsts, KernelLibrary]] = {}
+class CholeskyLibrary(KernelLibrary):
+    """cholesky.cu, with its C entry point typed."""
+
+    def __init__(self, path: str, build_seconds: float, log: str):
+        super().__init__(path, build_seconds, log)
+        self.lib.pf_chol_solve.argtypes = [_P, _P, _P, _I, _I, _P]
+        self.lib.pf_chol_solve.restype = _I
 
 
-def load(mc: ModelConsts) -> KernelLibrary:
-    """Build (once per sources+model+flags) and load the kernels for mc."""
-    cached = _LIBS.get(id(mc))
-    if cached is not None and cached[0] is mc:
-        return cached[1]
-    header = model_header(mc)
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    key = hashlib.sha256(src + header.encode() + " ".join(NVCC_FLAGS)
-                         .encode()).hexdigest()[:16]
-    out_dir = os.path.join(BUILD_DIR, key)
-    so = os.path.join(out_dir, "libpf_substep.so")
-    seconds, log = 0.0, ""
-    if not os.path.exists(so):
-        os.makedirs(out_dir, exist_ok=True)
+def model_spec(mc: ModelConsts) -> BuildSpec:
+    return BuildSpec("substep.cu", model_header(mc), "pf_substep")
+
+
+CHOLESKY_SPEC = BuildSpec("cholesky.cu", None, "pf_cholesky")
+
+
+def _compile(spec: BuildSpec):
+    """nvcc for one spec unless its library exists: (path, seconds, log)."""
+    so = spec.path()
+    if os.path.exists(so):
+        return so, 0.0, ""
+    out_dir = os.path.dirname(so)
+    os.makedirs(out_dir, exist_ok=True)
+    if spec.header is not None:
         with open(os.path.join(out_dir, "pf_model.h"), "w") as f:
-            f.write(header)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", out_dir, "-o", tmp, SOURCE],
-            capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, so)
-    lib = KernelLibrary(so, seconds, log)
-    _LIBS[id(mc)] = (mc, lib)
-    return lib
+            f.write(spec.header)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-I", out_dir, "-I", CSRC, "-o", tmp,
+         os.path.join(CSRC, spec.source)],
+        capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc {spec.source} failed ({proc.returncode}):"
+                           f"\n{log}")
+    os.replace(tmp, so)
+    return so, seconds, log
+
+
+def build_all(specs: Sequence[BuildSpec]) -> List[KernelLibrary]:
+    """Compile the missing libraries of `specs` at once (one nvcc each),
+    then load them all."""
+    with ThreadPoolExecutor(max_workers=max(len(specs), 1)) as pool:
+        built = list(pool.map(_compile, specs))
+    return [_load(spec, *b) for spec, b in zip(specs, built)]
+
+
+_LIBS: Dict[str, KernelLibrary] = {}
+
+
+def _load(spec: BuildSpec, path: str, seconds: float, log: str
+          ) -> KernelLibrary:
+    """The library at `path`, opened once per process."""
+    if path not in _LIBS:
+        cls = ModelLibrary if spec.header is not None else CholeskyLibrary
+        _LIBS[path] = cls(path, seconds, log)
+    return _LIBS[path]
+
+
+@functools.lru_cache(maxsize=None)
+def load(mc: ModelConsts) -> ModelLibrary:
+    """Build (once per sources + model + flags) and load substep.cu for mc."""
+    spec = model_spec(mc)
+    return _load(spec, *_compile(spec))
+
+
+@functools.lru_cache(maxsize=None)
+def load_cholesky() -> CholeskyLibrary:
+    """Build (once per source + flags) and load cholesky.cu."""
+    return _load(CHOLESKY_SPEC, *_compile(CHOLESKY_SPEC))

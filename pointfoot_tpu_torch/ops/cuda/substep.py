@@ -1,16 +1,21 @@
-"""Fused decimation rollout (pointfoot_tpu/ops/pallas/substep.py).
+"""Physics substep kernels (pointfoot_tpu/ops/pallas/substep.py).
 
-One kernel launch per physics substep, with the PD torque and the FK of the
-output inside it, and the state kept as rows × envs ((R, B) float32,
-contiguous) across the loop.  Between substeps only the terrain surface
-query runs, in plain PyTorch.  On non-flat terrain one FK launch seeds the
-first surface query.
+Two entry points, both with the state kept as rows × envs ((R, B) float32,
+contiguous) inside:
 
-Two wrappers launch the kernels of csrc/substep.cu for CUDA tensors:
-`rollout_step` (one substep) and `fk_rows` (collision-sphere positions).
-For CPU tensors they run their plain versions, `rollout_step_plain` and
-`fk_rows_plain`, built on physics/rowdyn.py.  Each wrapper counts its
-launches in `.launches`.
+- the fused decimation rollout, `rollout_substeps`: one kernel launch per
+  physics substep, with the PD torque and the FK of the output inside it.
+  Between substeps only the terrain surface query runs, in plain PyTorch.
+  On non-flat terrain one FK launch seeds the first surface query.
+- one substep with the torque, push and surface as inputs, `substep`, and
+  the sphere-xy FK that feeds its surface query, `fk_contact_xy`: the
+  mega-kernel route of physics/dynamics.step_batched.
+
+Four wrappers launch the kernels of csrc/substep.cu for CUDA tensors:
+`rollout_step` (one rollout substep), `fk_rows` (collision-sphere xyz),
+`step_rows` (one substep) and `fk_xy_rows` (collision-sphere xy).  For CPU
+tensors they run their plain versions (`..._plain`), built on
+physics/rowdyn.py.  Each wrapper counts its launches in `.launches`.
 """
 
 from __future__ import annotations
@@ -37,6 +42,26 @@ def ctrl_layout(nj: int, nc: int):
     return [("actions", nj), ("kp", nj), ("kd", nj), ("friction", nc),
             ("joint_friction", nj), ("added_mass", 1), ("com_offset", 3),
             ("k_contact", 1), ("d_contact", 1), ("push", 3)]
+
+
+def substep_in_layout(nj: int, nc: int):
+    """Input rows of `step_rows` (the surface rows come separately)."""
+    return [("base_pos", 3), ("base_quat", 4), ("base_lin_vel", 3),
+            ("base_ang_vel", 3), ("qpos", nj), ("qvel", nj), ("tau", nj),
+            ("ext_force", 3), ("friction", nc), ("joint_friction", nj),
+            ("added_mass", 1), ("com_offset", 3), ("k_contact", 1),
+            ("d_contact", 1)]
+
+
+def substep_out_layout(nj: int, nc: int):
+    return [("base_pos", 3), ("base_quat", 4), ("base_lin_vel", 3),
+            ("base_ang_vel", 3), ("qpos", nj), ("qvel", nj),
+            ("contact_force", 3 * nc)]
+
+
+def fk_in_layout(nj: int):
+    """Input rows of `fk_xy_rows`."""
+    return [("base_pos", 3), ("base_quat", 4), ("qpos", nj)]
 
 
 def _rows(layout) -> int:
@@ -128,6 +153,35 @@ def fk_rows_plain(mc: rowdyn.ModelConsts, state_rows: torch.Tensor
     return _stack([v for p in xyz for v in p], state_rows[0])
 
 
+def step_rows_plain(mc: rowdyn.ModelConsts, in_rows: torch.Tensor,
+                    surf_rows: Optional[torch.Tensor], dt: float,
+                    gravity: float) -> torch.Tensor:
+    """One substep on rows: `substep_in_layout` rows and optional surface
+    rows (nc heights, then 3·nc normal components) in,
+    `substep_out_layout` rows out."""
+    nj, nc = mc.nj, mc.nc
+    st = _read(in_rows, substep_in_layout(nj, nc))
+    for name in ("added_mass", "k_contact", "d_contact"):
+        st[name] = st[name][0]
+    surface = None
+    if surf_rows is not None:
+        surface = [(surf_rows[c], [surf_rows[nc + 3 * c + i]
+                                   for i in range(3)]) for c in range(nc)]
+    out = rowdyn.substep_rows(mc, st, dt, gravity, surface=surface)
+    return _stack(
+        out["base_pos"] + out["base_quat"] + out["base_lin_vel"]
+        + out["base_ang_vel"] + out["qpos"] + out["qvel"]
+        + [f for fc in out["contact_force"] for f in fc], in_rows[0])
+
+
+def fk_xy_rows_plain(mc: rowdyn.ModelConsts, rows: torch.Tensor
+                     ) -> torch.Tensor:
+    """(2·nc, B) world xy of every collision sphere from `fk_in_layout`
+    rows."""
+    xy = rowdyn.fk_contact_xy(mc, _read(rows, fk_in_layout(mc.nj)))
+    return _stack([v for p in xy for v in p], rows[0])
+
+
 # ------------------------------------------------------- kernel wrappers
 
 def _check_rows(name: str, t: torch.Tensor, rows: int, B: int,
@@ -149,6 +203,26 @@ def _stream(device: torch.device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _device(name: str, t: torch.Tensor) -> torch.device:
+    """The device of a wrapper's input: cpu (plain version) or cuda."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device
+
+
+def _library(mc: rowdyn.ModelConsts) -> build.KernelLibrary:
+    """The kernels built for mc, checked against this module's layouts."""
+    lib = build.load(mc)
+    nj, nc = mc.nj, mc.nc
+    want = (nj, nc, _rows(state_layout(nj)), _rows(ctrl_layout(nj, nc)),
+            4 * nc, nj + 6 * nc, _rows(substep_in_layout(nj, nc)),
+            _rows(substep_out_layout(nj, nc)), _rows(fk_in_layout(nj)))
+    if lib.layout != want:
+        raise RuntimeError(f"kernel layout {lib.layout} does not match the "
+                           f"model's {want}")
+    return lib
+
+
 def rollout_step(mc: rowdyn.ModelConsts, state_rows: torch.Tensor,
                  ctrl_rows: torch.Tensor, surf_rows: Optional[torch.Tensor],
                  with_push: bool, default_qpos: Sequence[float],
@@ -158,19 +232,14 @@ def rollout_step(mc: rowdyn.ModelConsts, state_rows: torch.Tensor,
     rows.  Same arguments and results as `rollout_step_plain`."""
     args = (mc, state_rows, ctrl_rows, surf_rows, with_push, default_qpos,
             action_scale, control_type, sim_dt, gravity)
-    dev = state_rows.device
+    dev = _device("rollout_step", state_rows)
     if dev.type == "cpu":
         return rollout_step_plain(*args)
-    if dev.type != "cuda":
-        raise ValueError(f"rollout_step: unsupported device {dev}")
-    lib = build.load(mc)
+    lib = _library(mc)
     nj, nc = mc.nj, mc.nc
     B = state_rows.shape[1]
     R_state, R_ctrl = _rows(state_layout(nj)), _rows(ctrl_layout(nj, nc))
     R_extra = nj + 6 * nc
-    if lib.layout != (nj, nc, R_state, R_ctrl, 4 * nc, R_extra):
-        raise RuntimeError(f"kernel layout {lib.layout} does not match the "
-                           f"model (nj={nj}, nc={nc})")
     _check_rows("state_rows", state_rows, R_state, B, dev)
     _check_rows("ctrl_rows", ctrl_rows, R_ctrl, B, dev)
     if surf_rows is not None:
@@ -195,12 +264,10 @@ def fk_rows(mc: rowdyn.ModelConsts, state_rows: torch.Tensor
             ) -> torch.Tensor:
     """Collision-sphere xyz rows: the CUDA kernel for CUDA rows, the plain
     version for CPU rows."""
-    dev = state_rows.device
+    dev = _device("fk_rows", state_rows)
     if dev.type == "cpu":
         return fk_rows_plain(mc, state_rows)
-    if dev.type != "cuda":
-        raise ValueError(f"fk_rows: unsupported device {dev}")
-    lib = build.load(mc)
+    lib = _library(mc)
     B = state_rows.shape[1]
     _check_rows("state_rows", state_rows, _rows(state_layout(mc.nj)), B, dev)
     out = torch.empty((3 * mc.nc, B), dtype=torch.float32, device=dev)
@@ -214,9 +281,60 @@ def fk_rows(mc: rowdyn.ModelConsts, state_rows: torch.Tensor
 fk_rows.launches = 0
 
 
+def step_rows(mc: rowdyn.ModelConsts, in_rows: torch.Tensor,
+              surf_rows: Optional[torch.Tensor], dt: float,
+              gravity: float) -> torch.Tensor:
+    """One substep on rows: the CUDA kernel for CUDA rows, the plain
+    version for CPU rows.  Same arguments and result as `step_rows_plain`;
+    without surface rows the ground is flat at z = 0."""
+    dev = _device("step_rows", in_rows)
+    if dev.type == "cpu":
+        return step_rows_plain(mc, in_rows, surf_rows, dt, gravity)
+    lib = _library(mc)
+    nj, nc = mc.nj, mc.nc
+    B = in_rows.shape[1]
+    _check_rows("in_rows", in_rows, _rows(substep_in_layout(nj, nc)), B, dev)
+    if surf_rows is not None:
+        _check_rows("surf_rows", surf_rows, 4 * nc, B, dev)
+    out = torch.empty((_rows(substep_out_layout(nj, nc)), B),
+                      dtype=torch.float32, device=dev)
+    err = lib.lib.pf_substep(
+        in_rows.data_ptr(),
+        None if surf_rows is None else surf_rows.data_ptr(),
+        out.data_ptr(), B, float(dt), float(gravity), _stream(dev))
+    _launched(err, "substep_kernel")
+    step_rows.launches += 1
+    return out
+
+
+step_rows.launches = 0
+
+
+def fk_xy_rows(mc: rowdyn.ModelConsts, rows: torch.Tensor) -> torch.Tensor:
+    """Collision-sphere xy rows: the CUDA kernel for CUDA rows, the plain
+    version for CPU rows."""
+    dev = _device("fk_xy_rows", rows)
+    if dev.type == "cpu":
+        return fk_xy_rows_plain(mc, rows)
+    lib = _library(mc)
+    B = rows.shape[1]
+    _check_rows("rows", rows, _rows(fk_in_layout(mc.nj)), B, dev)
+    out = torch.empty((2 * mc.nc, B), dtype=torch.float32, device=dev)
+    err = lib.lib.pf_fk_contact_xy(rows.data_ptr(), out.data_ptr(), B,
+                                   _stream(dev))
+    _launched(err, "fk_contact_xy_kernel")
+    fk_xy_rows.launches += 1
+    return out
+
+
+fk_xy_rows.launches = 0
+
+
 def reset_launch_counts():
     rollout_step.launches = 0
     fk_rows.launches = 0
+    step_rows.launches = 0
+    fk_xy_rows.launches = 0
 
 
 # ------------------------------------------------------------- public API
@@ -323,3 +441,96 @@ def rollout_substeps_plain(model, params: PhysicsParams, phys: PhysicsState,
     return _rollout(rollout_step_plain, fk_rows_plain, model, params, phys,
                     actions, last_qvel, push, height_fn, sim_dt, n_sub,
                     default_qpos, action_scale, control_type, gravity)
+
+
+def _unpack(rows: torch.Tensor, layout) -> dict:
+    """(R, B) rows -> {name: (B, count)} columns."""
+    cols, o = {}, 0
+    t = rows.t()
+    for name, cnt in layout:
+        cols[name] = t[:, o:o + cnt]
+        o += cnt
+    return cols
+
+
+def pack_substep_in(state: PhysicsState, params: PhysicsParams,
+                    joint_torque: torch.Tensor,
+                    external_force: torch.Tensor) -> torch.Tensor:
+    """Input rows of `step_rows`, in `substep_in_layout` order."""
+    return _pack([
+        state.base_pos, state.base_quat, state.base_lin_vel,
+        state.base_ang_vel, state.qpos, state.qvel, joint_torque,
+        external_force, params.friction, params.joint_friction,
+        params.added_mass[:, None], params.com_offset,
+        params.contact_stiffness[:, None], params.contact_damping[:, None]])
+
+
+def pack_surface(surface: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Surface rows from (heights (B, nc), normals (B, nc, 3))."""
+    h, n = surface
+    return _pack([h, n.reshape(h.shape[0], -1)])
+
+
+def pack_fk_in(state: PhysicsState) -> torch.Tensor:
+    """Input rows of `fk_xy_rows`, in `fk_in_layout` order."""
+    return _pack([state.base_pos, state.base_quat, state.qpos])
+
+
+def _substep(step_fn, model, params: PhysicsParams, state: PhysicsState,
+             joint_torque, dt, gravity, external_force, surface):
+    mc = model_consts(model)
+    nj, nc = mc.nj, mc.nc
+    B = state.base_pos.shape[0]
+    ext = (external_force if external_force is not None
+           else torch.zeros_like(state.base_pos))
+    in_rows = pack_substep_in(state, params, joint_torque, ext)
+    surf_rows = None if surface is None else pack_surface(surface)
+    out = _unpack(step_fn(mc, in_rows, surf_rows, dt, gravity),
+                  substep_out_layout(nj, nc))
+    return PhysicsState(
+        base_pos=out["base_pos"], base_quat=out["base_quat"],
+        base_lin_vel=out["base_lin_vel"], base_ang_vel=out["base_ang_vel"],
+        qpos=out["qpos"], qvel=out["qvel"],
+        contact_force=out["contact_force"].reshape(B, nc, 3))
+
+
+def substep(model, params: PhysicsParams, state: PhysicsState,
+            joint_torque: torch.Tensor, dt: float, gravity: float = 9.81,
+            external_force: Optional[torch.Tensor] = None,
+            surface: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+            ) -> PhysicsState:
+    """One batched substep through the substep kernel (`step_rows`).
+
+    `joint_torque` (B, nj) and `external_force` (B, 3, on the base) apply
+    as given; `surface` is None (flat ground at z = 0) or (heights (B, nc),
+    unit normals (B, nc, 3)) under each collision sphere.
+    """
+    return _substep(step_rows, model, params, state, joint_torque, dt,
+                    gravity, external_force, surface)
+
+
+def substep_plain(model, params: PhysicsParams, state: PhysicsState,
+                  joint_torque: torch.Tensor, dt: float,
+                  gravity: float = 9.81,
+                  external_force: Optional[torch.Tensor] = None,
+                  surface: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                  ) -> PhysicsState:
+    """`substep` through the plain version on any device."""
+    return _substep(step_rows_plain, model, params, state, joint_torque, dt,
+                    gravity, external_force, surface)
+
+
+def _fk_xy(fn, model, state: PhysicsState) -> torch.Tensor:
+    mc = model_consts(model)
+    return fn(mc, pack_fk_in(state)).t().reshape(-1, mc.nc, 2)
+
+
+def fk_contact_xy(model, state: PhysicsState) -> torch.Tensor:
+    """(B, nc, 2) world xy of every collision sphere, the terrain-query
+    positions of `substep`'s surface, through the FK-xy kernel."""
+    return _fk_xy(fk_xy_rows, model, state)
+
+
+def fk_contact_xy_plain(model, state: PhysicsState) -> torch.Tensor:
+    """`fk_contact_xy` through the plain version on any device."""
+    return _fk_xy(fk_xy_rows_plain, model, state)

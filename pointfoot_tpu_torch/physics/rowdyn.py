@@ -8,8 +8,10 @@ the JAX module does at trace time, so both produce the same float32 ops in
 the same order.
 
 This module is LAYOUT-AGNOSTIC, as its JAX counterpart is: with (B,) rows it
-is the plain PyTorch version of both CUDA kernels in csrc/substep.cu, which
-the CPU path runs and the card's kernels are held against.
+is the plain PyTorch version of the four CUDA kernels in csrc/substep.cu
+(`substep_rows` of the two substep kernels, `fk_contact_pos` and
+`fk_contact_xy` of the two FK kernels), which the CPU path runs and the
+card's kernels are held against.
 
 Semantics: implicit-damping velocity solve
     (M + dt·JᵀDJ + dt·diag(b_joint) + 1e-6 I) u⁺ = M u + dt·(τ + Jᵀf₀ − C)
@@ -594,6 +596,13 @@ def fk_contact_pos(mc: ModelConsts, st: Dict) -> List:
         p_rel = v_add(pos[b], m_vec(R[b], mc.collision_offset[c]))
         out.append([fadd(st["base_pos"][i], p_rel[i]) for i in range(3)])
     return out
+
+
+def fk_contact_xy(mc: ModelConsts, st: Dict) -> List:
+    """World [x, y] of every collision sphere, the terrain-query positions
+    of the substep kernel's surface rows.  `st` needs base_pos, base_quat
+    and qpos only."""
+    return [p[:2] for p in fk_contact_pos(mc, st)]
 
 
 def pd_torque_rows(mc: ModelConsts, st: Dict, default_qpos, action_scale,

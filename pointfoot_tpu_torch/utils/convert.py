@@ -4,8 +4,12 @@
   of rl/networks.ActorCritic.  A flax Dense kernel is (in, out); a torch
   Linear weight is (out, in), so it goes over transposed.
 - `physics_state_from_numpy` / `env_state_from_numpy`: a JAX PhysicsState or
-  EnvState exported field by field with `np.asarray` -> torch states.  The
-  JAX key and actuator-carry fields have no counterpart and are ignored.
+  EnvState exported field by field with `np.asarray` -> torch states, the
+  actuator-network carry included.  The JAX key has no counterpart and is
+  ignored.
+
+The actuator network's weights need no conversion: physics/actuator.py
+reads its own byte-identical copy of the baked JSON the JAX package reads.
 """
 
 from __future__ import annotations

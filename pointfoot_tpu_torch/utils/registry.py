@@ -7,11 +7,13 @@ from dataclasses import replace
 from typing import Dict, Optional, Tuple
 
 from pointfoot_tpu_torch.envs import pointfoot_config as pf
+from pointfoot_tpu_torch.envs import robot_configs
 from pointfoot_tpu_torch.envs.config import LeggedEnvCfg, TrainCfg, override
 from pointfoot_tpu_torch.envs.legged_env import LeggedEnv
 
 TASKS: Dict[str, Tuple[LeggedEnvCfg, TrainCfg]] = {
     "pointfoot_rough": (pf.POINTFOOT_ROUGH_CFG, pf.POINTFOOT_ROUGH_PPO),
+    **robot_configs.TASKS,
 }
 
 

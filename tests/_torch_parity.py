@@ -44,3 +44,46 @@ def torch_rough_env(num_envs: int = B):
 
     return make_env("pointfoot_rough", num_envs=num_envs, device="cpu",
                     cfg_patch=ROUGH_PATCH)
+
+
+def physics_rig(name: str, batch: int) -> dict:
+    """The rig of tests/test_pallas_substep.py:22-47 made with numpy from a
+    seed: `batch` envs of robot `name` with random poses and velocities,
+    bases from 15 cm below to 1 m above nominal height, random torques
+    (`tau`) and a base push (`ext`); the JAX model, state and params (`jm`,
+    `js`, `jp`) and the port's (`tm`, `ts`, `tp`)."""
+    import jax.numpy as jnp
+
+    from pointfoot_tpu.physics.assets import get_model as jget_model
+    from pointfoot_tpu.physics.model import PhysicsParams as JParams
+    from pointfoot_tpu.physics.model import PhysicsState as JState
+    from pointfoot_tpu_torch.physics.assets import get_model
+    from pointfoot_tpu_torch.utils import convert
+
+    B = batch
+    rng = np.random.default_rng(3)
+    jm = jget_model(name)
+    nj, nc = jm.nj, len(jm.collision_body)
+    q = np.array([0.0, 0.0, 0.0, 1.0]) + 0.1 * rng.standard_normal((B, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    state = dict(
+        base_pos=f32(np.c_[np.zeros((B, 2)),
+                           0.5 + rng.uniform(-0.15, 1.0, B)]),
+        base_quat=f32(q),
+        base_lin_vel=f32(0.5 * rng.standard_normal((B, 3))),
+        base_ang_vel=f32(0.8 * rng.standard_normal((B, 3))),
+        qpos=f32(0.4 * rng.standard_normal((B, nj))),
+        qvel=f32(1.5 * rng.standard_normal((B, nj))),
+        contact_force=np.zeros((B, nc, 3), np.float32))
+    jp = JParams.nominal(jm, batch=(B,)).replace(
+        friction=jnp.asarray(f32(rng.uniform(0.3, 1.2, (B, nc)))),
+        added_mass=jnp.asarray(f32(rng.uniform(-0.5, 2.0, B))),
+        com_offset=jnp.asarray(f32(0.02 * rng.standard_normal((B, 3)))))
+    tau = f32(10.0 * rng.standard_normal((B, nj)))
+    ext = f32(20.0 * rng.standard_normal((B, 3)))
+    js = JState(**{k: jnp.asarray(v) for k, v in state.items()})
+    return dict(
+        jm=jm, js=js, jp=jp, tau=tau, ext=ext,
+        tm=get_model(name), ts=convert.physics_state_from_numpy(state),
+        tp=convert.physics_params_from_numpy(export_fields(jp)))

@@ -88,3 +88,97 @@ def test_wrapper_rejects_bad_rows(rows):
     with pytest.raises(ValueError, match="ctrl_rows"):
         sp.rollout_step(mc, state, ctrl[:-1], surf, True, (0.0,) * 6, 0.5,
                         "P", 0.005, 9.81)
+
+
+# ---------------------------------------- kernels of dynamics.step_batched
+
+@pytest.fixture(scope="module", params=["pointfoot", "anymal_c"])
+def substep_rows(request):
+    """Substep input and surface rows of B envs for one robot."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mc = sp.model_consts(get_model(request.param))
+    nj, nc = mc.nj, mc.nc
+    rng = np.random.default_rng(2)
+
+    def r(n, s, o=0.0):
+        return o + s * rng.standard_normal((n, B))
+
+    q = r(4, 0.1)
+    q[3] += 1.0
+    q /= np.linalg.norm(q, axis=0)
+    rows = np.concatenate([
+        r(2, 0.5), 0.42 + 0.25 * rng.random((1, B)), q, r(3, 0.5),
+        r(3, 0.8), r(nj, 0.4), r(nj, 1.5), r(nj, 10.0), r(3, 20.0),
+        0.2 + 1.2 * rng.random((nc, B)), 0.1 * rng.random((nj, B)),
+        r(1, 0.5), r(3, 0.03), np.full((1, B), 1.2e4),
+        np.full((1, B), 1.2e3)])
+    n = r(3, 0.15)
+    n[2] = 1.0
+    n /= np.linalg.norm(n, axis=0)
+    surf = np.concatenate([r(nc, 0.03), np.tile(n, (nc, 1))])
+    dev = torch.device("cuda")
+    return mc, tuple(torch.tensor(a, dtype=torch.float32, device=dev)
+                     for a in (rows, surf))
+
+
+@pytest.mark.parametrize("surface", [True, False])
+def test_substep_kernel_matches_plain(substep_rows, surface):
+    """Tolerances of tests/test_pallas_substep.py:50-60 (kernel vs
+    reference)."""
+    mc, (rows, surf) = substep_rows
+    s = surf if surface else None
+    before = sp.step_rows.launches
+    got = sp.step_rows(mc, rows, s, 0.005, 9.81)
+    assert sp.step_rows.launches == before + 1
+    want = sp.step_rows_plain(mc, rows, s, 0.005, 9.81)
+    torch.cuda.synchronize()
+    nj = mc.nj
+    o_qpos, o_qvel, o_force = 13, 13 + nj, 13 + 2 * nj
+    torch.testing.assert_close(got[:7], want[:7], atol=2e-5, rtol=0)
+    torch.testing.assert_close(got[7:13], want[7:13], atol=3e-4, rtol=3e-4)
+    torch.testing.assert_close(got[o_qpos:o_qvel], want[o_qpos:o_qvel],
+                               atol=2e-5, rtol=0)
+    torch.testing.assert_close(got[o_qvel:o_force], want[o_qvel:o_force],
+                               atol=1e-3, rtol=3e-4)
+    torch.testing.assert_close(got[o_force:], want[o_force:], atol=0.1,
+                               rtol=1e-3)
+
+
+def test_fk_xy_kernel_matches_plain(substep_rows):
+    mc, (rows, _) = substep_rows
+    fk_in = torch.cat([rows[:7], rows[13:13 + mc.nj]]).contiguous()
+    before = sp.fk_xy_rows.launches
+    got = sp.fk_xy_rows(mc, fk_in)
+    assert sp.fk_xy_rows.launches == before + 1
+    torch.testing.assert_close(got, sp.fk_xy_rows_plain(mc, fk_in),
+                               atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("n", [12, 18])
+def test_cholesky_kernel_matches_plain(n):
+    """Tolerance of tests/test_pallas.py:24; B = 1000 leaves the last block
+    with idle threads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pointfoot_tpu_torch.ops.cuda import cholesky
+
+    rng = np.random.default_rng(n)
+    A = rng.normal(size=(B, n, n)).astype(np.float32)
+    A = A @ A.transpose(0, 2, 1) + n * np.eye(n, dtype=np.float32)
+    b = rng.normal(size=(B, n)).astype(np.float32)
+    dev = torch.device("cuda")
+    A_t = torch.tensor(A.reshape(B, n * n).T.copy(), device=dev)
+    b_t = torch.tensor(b.T.copy(), device=dev)
+    before = cholesky.chol_solve_lanes.launches
+    x_t = cholesky.chol_solve_lanes(A_t, b_t)
+    assert cholesky.chol_solve_lanes.launches == before + 1
+    want = cholesky.chol_solve_lanes_plain(A_t, b_t)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(x_t, want, atol=3e-3, rtol=3e-3)
+    x = torch.linalg.solve(torch.tensor(A, dtype=torch.float64),
+                           torch.tensor(b, dtype=torch.float64))
+    torch.testing.assert_close(x_t.t().cpu().double(), x, atol=3e-3,
+                               rtol=3e-3)
+    with pytest.raises(ValueError, match="no kernel for n = 7"):
+        cholesky.chol_solve_lanes(A_t[:49].contiguous(), b_t[:7].contiguous())

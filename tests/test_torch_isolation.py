@@ -41,7 +41,7 @@ def test_every_module_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15
+    assert int(proc.stdout.split()[-1]) >= 21
 
 
 def test_sources_do_not_mention_jax_package():
@@ -63,6 +63,38 @@ def test_asset_copy_is_byte_identical():
         assert a.read() == b.read()
 
 
+@pytest.mark.parametrize("name", ["anymal_c", "actuator_anydrive_v3_lstm",
+                                  "anymal_b", "a1", "cassie"])
+def test_new_asset_copies_are_byte_identical(name):
+    rel = os.path.join("physics", "_assets", f"{name}.json")
+    with open(os.path.join(REPO, "pointfoot_tpu", rel), "rb") as a, \
+            open(os.path.join(PORT, rel), "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_slice_modules_import_without_jax():
+    """The modules of the step_batched slice, by name, with JAX blocked."""
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'orbax', 'optax'):\n"
+        "    sys.modules[m] = None\n"
+        "for n in ('ops.spatial', 'ops.linalg', 'ops.quat', "
+        "'physics.contact', 'physics.dynamics', 'physics.rowdyn', "
+        "'physics.actuator', 'physics.assets', 'ops.cuda.substep', "
+        "'ops.cuda.cholesky', 'ops.cuda.build', 'envs.config', "
+        "'envs.robot_configs', 'envs.legged_env', 'utils.registry', "
+        "'utils.convert'):\n"
+        "    importlib.import_module('pointfoot_tpu_torch.' + n)\n"
+        "from pointfoot_tpu_torch.physics.assets import get_model\n"
+        "m = get_model('anymal_c')\n"
+        "assert (m.nb, m.nv, len(m.collision_body)) == (13, 18, 13)\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
+
+
 def _entry_points():
     from pointfoot_tpu_torch import device, play
     from pointfoot_tpu_torch.utils import policy_eval, registry
@@ -70,6 +102,9 @@ def _entry_points():
     return {
         "resolve_device": lambda: device.resolve_device(),
         "make_env": lambda: registry.make_env("pointfoot_rough", num_envs=2),
+        "make_env_anymal": lambda: registry.make_env(
+            "anymal_c_rough", num_envs=2,
+            cfg_patch={"terrain": {"procedural": True}}),
         "make_eval_env": lambda: policy_eval.make_eval_env(
             "pointfoot_rough", 2, policy_eval.FLAGSHIP_PATCH),
         "play": lambda: play.main(["--num_envs", "2", "--steps", "1"]),
@@ -77,7 +112,8 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "make_env",
-                                  "make_eval_env", "play"])
+                                  "make_env_anymal", "make_eval_env",
+                                  "play"])
 def test_entry_points_raise_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

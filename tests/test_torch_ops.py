@@ -1,4 +1,5 @@
-"""Quaternion ops of the PyTorch port vs pointfoot_tpu.ops.quat (atol 1e-6)."""
+"""Quaternion ops of the PyTorch port vs the JAX package's ops/quat.py
+(atol 1e-6)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +31,9 @@ CASES = {
     "apply_yaw": lambda m, q, v, a, b: m.apply_yaw(q, v),
     "wrap_to_pi": lambda m, q, v, a, b: m.wrap_to_pi(a),
     "heading_wz": lambda m, q, v, a, b: m.heading_wz(a, b),
+    "mul": lambda m, q, v, a, b: m.mul(q, 0.5 * q + 0.1),
+    "to_matrix": lambda m, q, v, a, b: m.to_matrix(q),
+    "integrate": lambda m, q, v, a, b: m.integrate(q, 3.0 * v, 0.005),
 }
 
 

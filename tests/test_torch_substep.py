@@ -1,9 +1,13 @@
-"""The port's fused rollout (plain path, CPU) vs the JAX env's physics.
+"""The port's substep kernels' plain paths (CPU) vs the JAX package.
 
 `pointfoot_tpu_torch.ops.cuda.substep.rollout_substeps` on CPU tensors runs
 the plain version of the CUDA kernels; it is held to the JAX env's
 `_physics_rollout` on rough procedural terrain, with a push on substep 0,
-at the tolerances of tests/test_pallas_substep.py:141-151.
+at the tolerances of tests/test_pallas_substep.py:141-151.  The plain twins
+of the substep and sphere-xy kernels (`substep_plain`,
+`fk_contact_xy_plain`) are held to the Pallas kernels in interpret mode on
+ANYmal C, at the tolerances of tests/test_pallas_substep.py:50-60 and
+atol 2e-5.
 """
 
 import dataclasses
@@ -14,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import B, export_fields, jax_rough_env, torch_rough_env
+from _torch_parity import (B, export_fields, jax_rough_env, physics_rig,
+                           torch_rough_env)
 from pointfoot_tpu.physics import dynamics
 from pointfoot_tpu_torch.ops.cuda import substep as sp
 from pointfoot_tpu_torch.utils import convert
@@ -135,3 +140,76 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         sp.rollout_step(mc, rows, torch.zeros(42, 4, device="meta"), None,
                         True, (0.0,) * 6, 0.5, "P", 0.005, 9.81)
+
+
+# ------------------- the mega-kernel route's twins (ANYmal, as on the slice)
+
+@pytest.fixture(scope="module")
+def anymal_rig():
+    return physics_rig("anymal_c", 16)
+
+
+def _assert_substep_close(got, ref):
+    """tests/test_pallas_substep.py:50-60."""
+    np.testing.assert_allclose(got.base_lin_vel.numpy(), ref.base_lin_vel,
+                               atol=3e-4, rtol=3e-4)
+    np.testing.assert_allclose(got.base_ang_vel.numpy(), ref.base_ang_vel,
+                               atol=3e-4, rtol=3e-4)
+    np.testing.assert_allclose(got.qvel.numpy(), ref.qvel, atol=1e-3,
+                               rtol=3e-4)
+    for f in ("base_pos", "base_quat", "qpos"):
+        np.testing.assert_allclose(getattr(got, f).numpy(),
+                                   np.asarray(getattr(ref, f)), atol=2e-5,
+                                   err_msg=f)
+    np.testing.assert_allclose(got.contact_force.numpy(), ref.contact_force,
+                               atol=0.1, rtol=1e-3)
+
+
+@pytest.mark.parametrize("terrain", ["flat", "slope"])
+def test_substep_matches_substep_pallas(anymal_rig, terrain):
+    """The substep kernel's plain twin vs the Pallas kernel in interpret
+    mode, with surface rows gathered at the sphere positions of the same
+    pre-step state (tests/test_pallas_substep.py:72-99)."""
+    from pointfoot_tpu.ops.pallas.substep import substep_pallas
+
+    r = anymal_rig
+    jsurf = tsurf = None
+    if terrain == "slope":
+        gx, gy = 0.12, -0.08
+        kin = jax.vmap(lambda s, p: dynamics.forward_kinematics(
+            r["jm"], s, p))(r["js"], r["jp"])
+        m = r["jm"]
+        xy = np.stack([np.asarray(
+            kin.body_pos[:, b] + jnp.einsum("bij,j->bi", kin.body_rot[:, b],
+                                            m.collision_offset[c]))[:, :2]
+            for c, b in enumerate(m.collision_body)], axis=1)
+        h = (gx * xy[..., 0] + gy * xy[..., 1]).astype(np.float32)
+        nrm = np.array([-gx, -gy, 1.0]) / np.sqrt(gx * gx + gy * gy + 1.0)
+        n = np.broadcast_to(nrm.astype(np.float32), h.shape + (3,)).copy()
+        jsurf = (jnp.asarray(h), jnp.asarray(n))
+        tsurf = (torch.from_numpy(h), torch.from_numpy(n))
+    ref = substep_pallas(r["jm"], r["jp"], r["js"], jnp.asarray(r["tau"]),
+                         0.005, external_force=jnp.asarray(r["ext"]),
+                         surface=jsurf, interpret=True)
+    assert np.abs(np.asarray(ref.contact_force)).max() > 10.0
+    args = (r["tm"], r["tp"], r["ts"], torch.from_numpy(r["tau"]), 0.005)
+    kw = dict(external_force=torch.from_numpy(r["ext"]), surface=tsurf)
+    got = sp.substep_plain(*args, **kw)
+    _assert_substep_close(got, ref)
+    # on CPU tensors the kernel's wrapper is its plain twin
+    before = sp.step_rows.launches
+    wrapped = sp.substep(*args, **kw)
+    assert sp.step_rows.launches == before
+    torch.testing.assert_close(wrapped.qvel, got.qvel, atol=0, rtol=0)
+
+
+def test_fk_contact_xy_matches_pallas(anymal_rig):
+    from pointfoot_tpu.ops.pallas.substep import fk_contact_xy_pallas
+
+    r = anymal_rig
+    want = fk_contact_xy_pallas(r["jm"], r["js"], interpret=True)
+    got = sp.fk_contact_xy_plain(r["tm"], r["ts"])
+    assert got.shape == (16, 13, 2)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+    np.testing.assert_array_equal(sp.fk_contact_xy(r["tm"], r["ts"]).numpy(),
+                                  got.numpy())
