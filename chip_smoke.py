@@ -2,14 +2,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths at full width: the policy rollout of
+Drives the port's three main paths at full width: the policy rollout of
 pointfoot_rough (fused rollout kernels) and the actuator-net task
 anymal_c_rough (physics/dynamics.step_batched and its kernels), both on
-procedural terrain at 4096 envs.
+procedural terrain at 4096 envs, and the SRB-MPC tick of PointFoot at 4096
+scenarios (the fused SRB-LQR kernel).
 
 1. device and build: the card's name and power limit; the PointFoot,
-   ANYmal and Cholesky libraries of pointfoot_tpu_torch/csrc/ built by
-   parallel nvcc processes (seconds, registers, spills);
+   ANYmal, A1, Cholesky and Riccati libraries of pointfoot_tpu_torch/csrc/
+   built by parallel nvcc processes (seconds, registers, spills);
 2. PointFoot kernels against their plain PyTorch versions on a state
    reached after 20 policy steps, with a push queued: the full decimation
    rollout, one rollout substep and the sphere FK, each within its stated
@@ -34,7 +35,20 @@ procedural terrain at 4096 envs.
    a per-layer breakdown, and the physical gate (level 0, zero actions, no
    pushes, 2 s) inside the band the JAX package gives;
 6. anymal_c_rough at 2048 envs, the Cholesky route: 25 steps, Cholesky
-   kernel 4x the step count, substep kernel 0.
+   kernel 4x the step count, substep kernel 0;
+7. the SRB-LQR kernel against its plain version at 4096 and 1000
+   scenarios, on the PointFoot tick's own problems (m = 6), A1's (m = 12)
+   and random dense problems, horizon 12; its per-launch time, bound, and
+   the time of the sequential Riccati solver on the same problems;
+8. the SRB-MPC tick at full width through pointfoot_tpu_torch.bench: 4096
+   PointFoot scenarios, horizon 12, one SRB-LQR launch per tick and no
+   other kernel, solves/s against real time (50 Hz), a per-layer
+   breakdown, and the kernel tick against the sequential-solver tick on
+   the same states;
+9. the closed-loop gate: 4096 A1 scenarios on flat ground, a lateral
+   0.3 m/s perturbation, 50 ticks of the kernel tick with 4 substeps of
+   leg_torques and dynamics.step_batched each: every base stays above
+   0.2 m, upright, and comes to rest.
 
 The line before the last holds the kernels' JSON record, the one before it
 the card's name and power limit, and the last line is the JSON
@@ -45,7 +59,6 @@ not 0 and no result line is printed.  Without CUDA it exits with code 2.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
@@ -53,13 +66,17 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from pointfoot_tpu_torch import bench
+from pointfoot_tpu_torch.mpc import srb
 from pointfoot_tpu_torch.ops.cuda import build
 from pointfoot_tpu_torch.ops.cuda import cholesky as ch
+from pointfoot_tpu_torch.ops.cuda import riccati as rk
 from pointfoot_tpu_torch.ops.cuda import substep as sp
 from pointfoot_tpu_torch.physics import actuator as act
 from pointfoot_tpu_torch.physics import dynamics
+from pointfoot_tpu_torch.physics.assets import get_model
 from pointfoot_tpu_torch.physics.contact import query_surface
-from pointfoot_tpu_torch.physics.model import PhysicsState
+from pointfoot_tpu_torch.physics.model import PhysicsParams, PhysicsState
 from pointfoot_tpu_torch.utils import policy_eval
 from pointfoot_tpu_torch.utils.registry import make_env
 
@@ -73,6 +90,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 SUBSTEP_SRC = "pointfoot_tpu_torch/csrc/substep.cu"
 CHOL_SRC = "pointfoot_tpu_torch/csrc/cholesky.cu"
+RICCATI_SRC = "pointfoot_tpu_torch/csrc/riccati.cu"
 # tolerances of tests/test_pallas_substep.py:141-151 (rollout vs reference)
 ROLLOUT_TOL = {"qvel": 2e-3, "base_lin_vel": 5e-4, "base_pos": 5e-5,
                "tau": 5e-3, "sphere_pos": 5e-5}
@@ -99,18 +117,23 @@ GATE_PATCH = dict(
 GATE_STEPS = 100  # 2 s at the 50 Hz policy rate
 GATE_MEAN_HEIGHT = (0.25, 0.45)  # m
 GATE_MAX_TERMINATED = 0.02  # share of envs
+# SRB-MPC: kernel vs plain version, tests/test_pallas.py:77-78; kernel tick
+# vs sequential-solver tick, tests/test_srb_pallas.py:41-45
+LQR_TOL = 2e-3  # rtol and atol
+LQR_RAGGED = 1000  # a batch whose last block has idle threads
+TICK_TAU_TOL = (2e-3, 2e-2)  # (rtol, atol), N·m
+TICK_FORCE_TOL = (2e-3, 5e-2)  # (rtol, atol), N
+MPC_ITERS, MPC_REPS = 20, 3
+A1_QDEF = (-0.1, 0.8, -1.5, 0.1, 0.8, -1.5, -0.1, 1.0, -1.5, 0.1, 1.0, -1.5)
+# the closed-loop recipe of tests/test_srb.py:45-92
+SRB_GATE_CFG = dict(height_target=0.28, w_vel=1.0, w_height=10.0,
+                    w_orient=5.0, w_omega=0.5, w_force_normal=1e-3,
+                    w_force_tangent=2e-2, kp_swing=20.0, kd_swing=0.5)
+SRB_GATE_TICKS, SRB_GATE_SUBSTEPS, SRB_GATE_DT = 50, 4, 0.005
 
 
 def log(*args):
     print(*args, flush=True)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60
-    ).stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -171,6 +194,7 @@ def max_err(a, b) -> float:
 def reset_counts():
     sp.reset_launch_counts()
     ch.chol_solve_lanes.launches = 0
+    rk.srb_lqr_lanes.launches = 0
 
 
 def read_counts() -> dict:
@@ -178,7 +202,8 @@ def read_counts() -> dict:
             "fk_from_state": sp.fk_rows.launches,
             "substep": sp.step_rows.launches,
             "fk_contact_xy": sp.fk_xy_rows.launches,
-            "chol_solve": ch.chol_solve_lanes.launches}
+            "chol_solve": ch.chol_solve_lanes.launches,
+            "srb_lqr": rk.srb_lqr_lanes.launches}
 
 
 def expect_counts(got: dict, **want):
@@ -216,15 +241,17 @@ def check_finite(state, obs, num_envs, num_obs, what):
 
 # ------------------------------------------------------------ 1. build
 
-def build_kernels(mc_pf, mc_any):
+def build_kernels(mc_pf, mc_any, mc_a1):
     specs = [build.model_spec(mc_pf), build.model_spec(mc_any),
-             build.CHOLESKY_SPEC]
+             build.model_spec(mc_a1), build.CHOLESKY_SPEC,
+             build.RICCATI_SPEC]
     t0 = time.perf_counter()
     libs = build.build_all(specs)
-    log(f"[build] 3 libraries in {time.perf_counter() - t0:.2f} s wall "
-        f"(parallel nvcc)")
+    log(f"[build] {len(specs)} libraries in {time.perf_counter() - t0:.2f} "
+        f"s wall (parallel nvcc)")
     for what, lib in zip(("PointFoot substep.cu", "ANYmal substep.cu",
-                          "cholesky.cu"), libs):
+                          "A1 substep.cu", "cholesky.cu", "riccati.cu"),
+                         libs):
         log(f"[build] {what}: {lib.path}: {lib.build_seconds:.2f} s")
         for line in lib.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -668,12 +695,236 @@ def cholesky_route():
     return launches
 
 
+# ------------------------------------------ 7. the SRB-LQR kernel vs plain
+
+def mpc_scenarios(ctrl, num: int, qdef, height: float, seed: int):
+    """`num` scenarios at the default pose with a seeded velocity
+    perturbation and commands; 30 N on every foot, and on none in every
+    fourth scenario, which the contact gate turns back into full stance."""
+    dev = ctrl.default_qpos.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    phys = PhysicsState.default(ctrl.model, qdef, num, dev,
+                                base_height=height)
+    force = torch.zeros_like(phys.contact_force)
+    force[:, list(ctrl.feet_idx), 2] = 30.0
+    force[::4] = 0.0
+    lin = 0.1 * randn(num, 3)
+    lin[:, 1] += 0.2
+    phys = phys.replace(base_lin_vel=lin, base_ang_vel=0.1 * randn(num, 3),
+                        qvel=0.2 * randn(num, ctrl.model.nj),
+                        contact_force=force)
+    return phys, 0.3 * randn(num, 3)
+
+
+def dense_problem(m: int, num: int, seed: int, device):
+    """The random dense problem of tests/test_pallas.py:60-72 at `num`
+    scenarios: F perturbed everywhere."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+
+    n = 12
+    F = torch.eye(n, device=device).repeat(num, 1, 1)
+    eye3 = torch.eye(3, device=device)
+    F[:, 0:3, 6:9] += 0.02 * eye3
+    F[:, 3:6, 9:12] += 0.02 * eye3
+    F += 0.01 * randn(num, n, n)
+    Xd = randn(num, n).abs() + 0.5
+    return (F, 0.05 * randn(num, n), 0.1 * randn(num, n, m), Xd,
+            randn(num, m).abs() * 0.01 + 0.005, 2.0 * Xd, randn(num, n),
+            randn(num, m))
+
+
+def check_srb_lqr(staged, horizon: int, what: str) -> float:
+    """Hold the kernel to its plain version on staged problems, at the full
+    batch and at its first LQR_RAGGED scenarios."""
+    worst = 0.0
+    for num in (staged[1].shape[1], LQR_RAGGED):
+        part = tuple(t[:, :num].contiguous() for t in staged)
+        got = rk.srb_lqr_lanes(*part, horizon)
+        want = rk.srb_lqr_lanes_plain(*part, horizon)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"srb_lqr {what} B={num}: shape "
+                                 f"{tuple(got.shape)} or non-finite forces")
+        err = (got - want).abs()
+        share = float((err / (LQR_TOL + LQR_TOL * want.abs())).max())
+        if not share <= 1.0:
+            raise AssertionError(
+                f"srb_lqr {what} B={num}: max |err| {float(err.max())} "
+                f"beyond rtol/atol {LQR_TOL}")
+        log(f"[kernels] srb_lqr {what} B={num}: max |err| "
+            f"{float(err.max()):.3g} of forces up to "
+            f"{float(want.abs().max()):.3g} ({100 * share:.2g}% of the "
+            f"tolerance)")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def riccati_kernels(pf_ctrl, a1_ctrl):
+    dev = pf_ctrl.default_qpos.device
+    T = pf_ctrl.cfg.horizon
+    pf_phys, pf_cmd = mpc_scenarios(pf_ctrl, NUM_ENVS, [0.0] * 6, 0.62, 7)
+    pf_prob = pf_ctrl.tick_problem(pf_phys, pf_cmd)[0]
+    pf_staged = rk.stage(*pf_prob)
+    err = check_srb_lqr(pf_staged, T, "PointFoot tick problems m=6")
+    a1_phys, a1_cmd = mpc_scenarios(a1_ctrl, NUM_ENVS, A1_QDEF, 0.28, 8)
+    a1_staged = rk.stage(*a1_ctrl.tick_problem(a1_phys, a1_cmd)[0])
+    err = max(err, check_srb_lqr(a1_staged, T, "A1 tick problems m=12"))
+    for m in rk.SIZES:
+        dense = rk.stage(*dense_problem(m, NUM_ENVS, 9 + m, dev))
+        err = max(err, check_srb_lqr(dense, T, f"random dense m={m}"))
+
+    # per launch, at the main path's shapes: the PointFoot problems
+    n, m = 12, pf_staged[4].shape[0]
+    rec = dict(
+        err=err, ms=cuda_ms(lambda: rk.srb_lqr_lanes(*pf_staged, T), 100),
+        plain_ms=cuda_ms(lambda: rk.srb_lqr_lanes_plain(*pf_staged, T), 3,
+                         warmup=1),
+        nbytes=4 * NUM_ENVS * (n * n + n * m + 4 * n + 2 * m + T * m),
+        ops=count_ops(lambda: rk.srb_lqr_lanes_plain(*pf_staged, T)))
+    a1_ms = cuda_ms(lambda: rk.srb_lqr_lanes(*a1_staged, T), 50)
+    seq_ms = cuda_ms(lambda: srb.sequential_srb_lqr(*pf_prob, horizon=T), 3,
+                     warmup=1)
+    log(f"[kernels] srb_lqr at A1 m=12 B={NUM_ENVS}: {a1_ms:.4f} ms/launch")
+    log(f"[kernels] sequential Riccati solver (plan_tick's) on the PointFoot "
+        f"problems: {seq_ms:.2f} ms (no single PyTorch call computes the "
+        f"solve: library_ms is null)")
+    return rec
+
+
+# ------------------------------------------------ 8. the SRB-MPC tick
+
+def check_close(got, want, rtol, atol, what):
+    err = (got - want).abs()
+    share = float((err / (atol + rtol * want.abs())).max())
+    if not share <= 1.0 or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: max |err| {float(err.max())} beyond "
+                             f"rtol {rtol} / atol {atol}")
+    return float(err.max()), share
+
+
+def mpc_tick(pf_ctrl, kernel_ms: float):
+    torch.cuda.synchronize()
+    reset_counts()
+    rec = bench.main_mpc(NUM_ENVS, iters=MPC_ITERS, reps=MPC_REPS,
+                         solver="kernel")
+    launches = read_counts()
+    ticks = 1 + MPC_ITERS * MPC_REPS  # the warm-up tick and the timed ones
+    expect_counts(launches, srb_lqr=ticks)
+    if rec["metric"] != f"srb_mpc_scenario_solves_per_sec@{NUM_ENVS}" or \
+            rec["conditions"]["horizon"] != 12 or not rec["value"] > 0:
+        raise AssertionError(f"bench record {rec}")
+    log(f"[mpc] SRB-MPC tick, PointFoot, {NUM_ENVS} scenarios, horizon "
+        f"{rec['conditions']['horizon']}: {rec['value']:.0f} solves/s, "
+        f"{NUM_ENVS / rec['value'] * 1e3:.2f} ms/tick, "
+        f"{rec['vs_baseline']:.4f} x real time ({NUM_ENVS} x 50 Hz), "
+        f"launches {launches}")
+
+    cfg = pf_ctrl.cfg
+    phys, cmd = mpc_scenarios(pf_ctrl, NUM_ENVS, [0.0] * 6, 0.62, 17)
+    tau_k, fs_k = pf_ctrl.plan_tick_cuda(phys, cmd)
+    tau_p, plan = pf_ctrl.plan_tick(phys, cmd)
+    torch.cuda.synchronize()
+    nf = len(pf_ctrl.feet_idx)
+    if tau_k.shape != (NUM_ENVS, pf_ctrl.model.nj) or \
+            fs_k.shape != (NUM_ENVS, cfg.horizon, nf, 3):
+        raise AssertionError(f"tick shapes {tuple(tau_k.shape)}, "
+                             f"{tuple(fs_k.shape)}")
+    tau_err, tau_share = check_close(tau_k, tau_p, *TICK_TAU_TOL,
+                                     "kernel tick vs plain tick, torques")
+    f_err, f_share = check_close(fs_k[:, 0], plan.forces[:, 0],
+                                 *TICK_FORCE_TOL,
+                                 "kernel tick vs plain tick, first forces")
+    log(f"[mpc] kernel tick vs sequential-solver tick on {NUM_ENVS} "
+        f"perturbed states: torques max |err| {tau_err:.3g} N·m "
+        f"({100 * tau_share:.2g}% of the tolerance), first forces "
+        f"{f_err:.3g} N ({100 * f_share:.2g}%)")
+
+    prob, ct, kin = pf_ctrl.tick_problem(phys, cmd)
+    raw = rk.srb_lqr(*prob, horizon=cfg.horizon).reshape(
+        NUM_ENVS, cfg.horizon, nf, 3)
+    layers = {
+        "tick (plan_tick_cuda)": cuda_ms(
+            lambda: pf_ctrl.plan_tick_cuda(phys, cmd), 10),
+        "FK + problem assembly": cuda_ms(
+            lambda: pf_ctrl.tick_problem(phys, cmd), 10),
+        "staging to (rows, B)": cuda_ms(lambda: rk.stage(*prob), 20),
+        "SRB-LQR kernel": kernel_ms,
+        "cone projection": cuda_ms(
+            lambda: srb._project_cone(raw, cfg), 20),
+        "leg_torques": cuda_ms(
+            lambda: pf_ctrl.leg_torques(phys, fs_k[:, 0], ct, kin=kin), 10),
+        "tick with the sequential solver (plan_tick)": cuda_ms(
+            lambda: pf_ctrl.plan_tick(phys, cmd), 3, warmup=1),
+    }
+    log("[layers] SRB-MPC tick ms: " + json.dumps(
+        {k: round(v, 3) for k, v in layers.items()}))
+    return launches
+
+
+# ------------------------------------------------ 9. the closed-loop gate
+
+def _flat_ground(x, y):
+    return torch.zeros_like(x)
+
+
+_flat_ground.is_flat = True
+
+
+def srb_gate(a1_model):
+    dev = a1_model.mass.device
+    params = PhysicsParams.nominal(a1_model, NUM_ENVS, dev)
+    ctrl = srb.SRBController(a1_model, params,
+                             a1_model.collision_indices("foot"), A1_QDEF,
+                             srb.SRBConfig(**SRB_GATE_CFG))
+    phys = PhysicsState.default(ctrl.model, A1_QDEF, NUM_ENVS, dev,
+                                base_height=0.29)
+    lin = torch.zeros_like(phys.base_lin_vel)
+    lin[:, 1] = 0.3
+    phys = phys.replace(base_lin_vel=lin)
+    command = torch.zeros(NUM_ENVS, 3, device=dev)
+    min_z = torch.full((NUM_ENVS,), float("inf"), device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(SRB_GATE_TICKS):
+        _, fs = ctrl.plan_tick_cuda(phys, command)
+        contact = ctrl.feet_and_contact(phys)[2]
+        for _ in range(SRB_GATE_SUBSTEPS):
+            # 200 Hz leg loop: remap the held plan force each substep
+            tau = ctrl.leg_torques(phys, fs[:, 0], contact)
+            phys = dynamics.step_batched(ctrl.model, params, phys, tau,
+                                         _flat_ground, SRB_GATE_DT)
+        min_z = torch.minimum(min_z, phys.base_pos[:, 2])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    expect_counts(read_counts(), srb_lqr=SRB_GATE_TICKS,
+                  substep=SRB_GATE_TICKS * SRB_GATE_SUBSTEPS)
+    rec = {"min_height": float(min_z.min()),
+           "min_abs_quat_w": float(phys.base_quat[:, 3].abs().min()),
+           "max_final_speed": float(
+               torch.linalg.vector_norm(phys.base_lin_vel, dim=-1).max())}
+    log(f"[srb-gate] A1, {NUM_ENVS} scenarios, flat ground, lateral 0.3 m/s, "
+        f"{SRB_GATE_TICKS} ticks x {SRB_GATE_SUBSTEPS} substeps in "
+        f"{wall:.2f} s: {json.dumps(rec)}")
+    if not (rec["min_height"] > 0.2 and rec["min_abs_quat_w"] > 0.99
+            and rec["max_final_speed"] < 0.2):
+        raise AssertionError(f"SRB closed-loop gate outside its bounds: "
+                             f"{rec}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    card = card_line()
+    card = bench.card_line(torch.device("cuda"))
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     pf_env = make_env("pointfoot_rough", num_envs=NUM_ENVS,
@@ -682,7 +933,8 @@ def main() -> int:
                        cfg_patch=ANYMAL_PATCH)
     mc_pf = sp.model_consts(pf_env.model)
     mc_any = sp.model_consts(any_env.model)
-    build_kernels(mc_pf, mc_any)
+    a1_model = get_model("a1").to(pf_env.device)
+    build_kernels(mc_pf, mc_any, sp.model_consts(a1_model))
     policy = policy_eval.inference_policy(
         policy_eval.load_actor(pf_env, "pointfoot_rough"))
 
@@ -694,6 +946,16 @@ def main() -> int:
     any_launches = anymal_rollout(any_env, lay)
     physical_gate()
     chol_launches = cholesky_route()
+    log(f"[t] env paths done at {time.perf_counter() - t_start:.1f} s")
+
+    pf_ctrl = bench.make_mpc(NUM_ENVS, pf_env.device)[0]
+    a1_ctrl = srb.SRBController(
+        a1_model, PhysicsParams.nominal(a1_model, NUM_ENVS, pf_env.device),
+        a1_model.collision_indices("foot"), A1_QDEF,
+        srb.SRBConfig(height_target=0.28))
+    lqr = riccati_kernels(pf_ctrl, a1_ctrl)
+    mpc_launches = mpc_tick(pf_ctrl, lqr["ms"])
+    srb_gate(a1_model)
 
     kernels = [
         kernel_record("rollout_substep_kernel", SUBSTEP_SRC,
@@ -711,6 +973,9 @@ def main() -> int:
         kernel_record("chol_solve_kernel", CHOL_SRC,
                       "pointfoot_tpu/ops/pallas/cholesky.py:35",
                       chol_launches["chol_solve"], **chol),
+        kernel_record("srb_lqr_kernel", RICCATI_SRC,
+                      "pointfoot_tpu/ops/pallas/riccati.py:32",
+                      mpc_launches["srb_lqr"], **lqr),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -1,11 +1,12 @@
 """Build and bind the CUDA kernels of csrc/ (plain C interface, ctypes).
 
-Two libraries, each built from one source:
+Three kinds of library, each built from one source:
 
 - substep.cu (with rowdyn.cuh) once per robot: the model's constants are
   written into a generated header, pf_model.h, so PointFoot and ANYmal each
   get their own library;
-- cholesky.cu once, with no model header.
+- cholesky.cu once, with no model header;
+- riccati.cu once, with no model header.
 
 Sources, the csrc/ headers, the generated header and the flags are hashed;
 a library lands in `_build/<hash>/` of the package on first use and is
@@ -198,11 +199,23 @@ class CholeskyLibrary(KernelLibrary):
         self.lib.pf_chol_solve.restype = _I
 
 
+class RiccatiLibrary(KernelLibrary):
+    """riccati.cu, with its C entry point typed."""
+
+    def __init__(self, path: str, build_seconds: float, log: str):
+        super().__init__(path, build_seconds, log)
+        self.lib.pf_srb_lqr.argtypes = [_P] * 10 + [_I, _I, _I, _P]
+        self.lib.pf_srb_lqr.restype = _I
+
+
 def model_spec(mc: ModelConsts) -> BuildSpec:
     return BuildSpec("substep.cu", model_header(mc), "pf_substep")
 
 
 CHOLESKY_SPEC = BuildSpec("cholesky.cu", None, "pf_cholesky")
+RICCATI_SPEC = BuildSpec("riccati.cu", None, "pf_riccati")
+_LIBRARY_CLASS = {"substep.cu": ModelLibrary, "cholesky.cu": CholeskyLibrary,
+                  "riccati.cu": RiccatiLibrary}
 
 
 def _compile(spec: BuildSpec):
@@ -245,8 +258,7 @@ def _load(spec: BuildSpec, path: str, seconds: float, log: str
           ) -> KernelLibrary:
     """The library at `path`, opened once per process."""
     if path not in _LIBS:
-        cls = ModelLibrary if spec.header is not None else CholeskyLibrary
-        _LIBS[path] = cls(path, seconds, log)
+        _LIBS[path] = _LIBRARY_CLASS[spec.source](path, seconds, log)
     return _LIBS[path]
 
 
@@ -261,3 +273,9 @@ def load(mc: ModelConsts) -> ModelLibrary:
 def load_cholesky() -> CholeskyLibrary:
     """Build (once per source + flags) and load cholesky.cu."""
     return _load(CHOLESKY_SPEC, *_compile(CHOLESKY_SPEC))
+
+
+@functools.lru_cache(maxsize=None)
+def load_riccati() -> RiccatiLibrary:
+    """Build (once per source + flags) and load riccati.cu."""
+    return _load(RICCATI_SPEC, *_compile(RICCATI_SPEC))

@@ -43,29 +43,41 @@ def cholesky_unrolled(A: torch.Tensor) -> torch.Tensor:
         for i in range(n)], dim=-2)
 
 
-def chol_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve A x = b for symmetric positive definite A (..., n, n)."""
-    n = A.shape[-1]
-    L = _factor(A)
+def solve_factored(L, rows, expand=lambda l: l):
+    """Both substitutions for the factor `L` of `_factor`: `rows[i]` is row i
+    of the right-hand side, a tensor that `expand(L[(i, j)])` broadcasts
+    against (one vector, or several right-hand sides side by side).  Returns
+    the rows of the solution as a list."""
+    n = len(rows)
     y = [None] * n
     for i in range(n):
-        s = b[..., i]
+        s = rows[i]
         for k in range(i):
-            s = s - L[(i, k)] * y[k]
-        y[i] = s / L[(i, i)]
+            s = s - expand(L[(i, k)]) * y[k]
+        y[i] = s / expand(L[(i, i)])
     x = [None] * n
     for i in reversed(range(n)):
         s = y[i]
         for k in range(i + 1, n):
-            s = s - L[(k, i)] * x[k]
-        x[i] = s / L[(i, i)]
-    return torch.stack(x, dim=-1)
+            s = s - expand(L[(k, i)]) * x[k]
+        x[i] = s / expand(L[(i, i)])
+    return x
+
+
+def chol_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b for symmetric positive definite A (..., n, n)."""
+    n = A.shape[-1]
+    return torch.stack(
+        solve_factored(_factor(A), [b[..., i] for i in range(n)]), dim=-1)
 
 
 def chol_solve_matrix(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """Solve A X = B with B (..., n, m), column by column."""
-    return torch.stack([chol_solve(A, B[..., j]) for j in range(B.shape[-1])],
-                       dim=-1)
+    """Solve A X = B with B (..., n, m): one factorization, then every
+    column through the substitutions of `chol_solve` at once."""
+    n = A.shape[-1]
+    return torch.stack(
+        solve_factored(_factor(A), [B[..., i, :] for i in range(n)],
+                       expand=lambda l: l[..., None]), dim=-2)
 
 
 def inv3(A: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:

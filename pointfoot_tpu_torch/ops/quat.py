@@ -1,7 +1,6 @@
 """Quaternion algebra in (x, y, z, w) order (pointfoot_tpu/ops/quat.py).
 
-Only the subset the env layer and physics/dynamics.py use.  Every function
-broadcasts over leading batch dimensions.
+Every function broadcasts over leading batch dimensions.
 """
 
 from __future__ import annotations
@@ -29,6 +28,10 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ], dim=-1)
 
 
+def conjugate(q: torch.Tensor) -> torch.Tensor:
+    return q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+
+
 def to_matrix(q: torch.Tensor) -> torch.Tensor:
     """Rotation matrix (body -> world), (..., 3, 3)."""
     x, y, z, w = q.unbind(-1)
@@ -41,6 +44,52 @@ def to_matrix(q: torch.Tensor) -> torch.Tensor:
         2.0 * (xz - wy), 2.0 * (yz + wx), 1.0 - 2.0 * (xx + yy),
     ], dim=-1)
     return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def from_axis_angle(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Unit axis + angle -> quaternion (xyzw)."""
+    half = 0.5 * angle
+    s = torch.sin(half)
+    return torch.cat([axis * s[..., None], torch.cos(half)[..., None]],
+                     dim=-1)
+
+
+def from_euler_zyx(roll: torch.Tensor, pitch: torch.Tensor,
+                   yaw: torch.Tensor) -> torch.Tensor:
+    """Intrinsic roll(x)-pitch(y)-yaw(z) Euler -> quaternion (URDF rpy)."""
+    cr, sr = torch.cos(roll * 0.5), torch.sin(roll * 0.5)
+    cp, sp = torch.cos(pitch * 0.5), torch.sin(pitch * 0.5)
+    cy, sy = torch.cos(yaw * 0.5), torch.sin(yaw * 0.5)
+    return torch.stack([
+        sr * cp * cy - cr * sp * sy,
+        cr * sp * cy + sr * cp * sy,
+        cr * cp * sy - sr * sp * cy,
+        cr * cp * cy + sr * sp * sy,
+    ], dim=-1)
+
+
+def from_rotvec(rv: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Rotation vector (axis * angle) -> quaternion, Taylor-safe at 0."""
+    angle = torch.linalg.vector_norm(rv, dim=-1, keepdim=True)
+    half = 0.5 * angle
+    small = angle < eps
+    k = torch.where(small, 0.5 + angle ** 2 / 48.0,
+                    torch.sin(half) / torch.where(small, 1.0, angle))
+    return torch.cat([rv * k, torch.cos(half)], dim=-1)
+
+
+def to_rotvec(q: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Quaternion -> rotation vector (inverse of from_rotvec)."""
+    qn = normalize(q)
+    # keep w >= 0 for the short rotation
+    w = qn[..., 3:4]
+    qn = qn * torch.sign(torch.where(w == 0, 1.0, w))
+    sin_half = torch.linalg.vector_norm(qn[..., :3], dim=-1, keepdim=True)
+    angle = 2.0 * torch.atan2(sin_half, qn[..., 3:4])
+    small = sin_half < eps
+    scale = torch.where(small, 2.0,
+                        angle / torch.where(small, 1.0, sin_half))
+    return qn[..., :3] * scale
 
 
 def integrate(q: torch.Tensor, omega_world: torch.Tensor,

@@ -109,3 +109,30 @@ class PhysicsState:
     qpos: torch.Tensor  # (B, nj)
     qvel: torch.Tensor  # (B, nj)
     contact_force: torch.Tensor  # (B, nc, 3) world force on each sphere
+
+    @classmethod
+    def default(cls, model: RobotModel, default_qpos, batch: int, device,
+                base_height: float = 0.8) -> "PhysicsState":
+        """`batch` copies of the robot at rest: upright at `base_height`,
+        joints at `default_qpos`, no contact force."""
+        nc = len(model.collision_body)
+        qpos = torch.as_tensor(default_qpos, dtype=torch.float32,
+                               device=device).reshape(model.nj)
+
+        def rows(values):
+            return torch.tensor(values, dtype=torch.float32,
+                                device=device).expand(batch, -1).clone()
+
+        def zeros(*shape):
+            return torch.zeros((batch,) + shape, dtype=torch.float32,
+                               device=device)
+
+        return cls(
+            base_pos=rows([0.0, 0.0, base_height]),
+            base_quat=rows([0.0, 0.0, 0.0, 1.0]),
+            base_lin_vel=zeros(3), base_ang_vel=zeros(3),
+            qpos=qpos.expand(batch, -1).clone(), qvel=zeros(model.nj),
+            contact_force=zeros(nc, 3))
+
+    def replace(self, **changes) -> "PhysicsState":
+        return dataclasses.replace(self, **changes)

@@ -7,6 +7,8 @@
   EnvState exported field by field with `np.asarray` -> torch states, the
   actuator-network carry included.  The JAX key has no counterpart and is
   ignored.
+- `srb_problem_from_numpy`: the eight arrays of a batch of SRB-LQR problems
+  (mpc/srb.srb_problem: F, c_tot, L, Xd, Ud, XTd, x0, f_ff) -> tensors.
 
 The actuator network's weights need no conversion: physics/actuator.py
 reads its own byte-identical copy of the baked JSON the JAX package reads.
@@ -81,6 +83,15 @@ def physics_state_from_numpy(d: Mapping, device="cpu") -> PhysicsState:
 
 def physics_params_from_numpy(d: Mapping, device="cpu") -> PhysicsParams:
     return _dataclass_from(PhysicsParams, d, device)
+
+
+def srb_problem_from_numpy(arrays, device="cpu"):
+    """The (F, c_tot, L, Xd, Ud, XTd, x0, f_ff) arrays of mpc/srb.srb_problem,
+    each with the scenarios leading, as float32 tensors on `device`."""
+    arrays = tuple(arrays)
+    if len(arrays) != 8:
+        raise ValueError(f"an SRB problem has 8 arrays, got {len(arrays)}")
+    return tuple(_tensor(a, device) for a in arrays)
 
 
 def env_state_from_numpy(d: Mapping, device="cpu") -> EnvState:

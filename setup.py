@@ -16,7 +16,8 @@ setup(
                                     "pointfoot_tpu_torch.*"]),
     package_data={"pointfoot_tpu.physics": ["_assets/*.json"],
                   "pointfoot_tpu.runtime": ["src/*.cpp"],
-                  "pointfoot_tpu_torch": ["csrc/*.cu", "_weights/*.npz"],
+                  "pointfoot_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "csrc/*.h",
+                                          "_weights/*.npz"],
                   "pointfoot_tpu_torch.physics": ["_assets/*.json"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy"],

@@ -87,3 +87,23 @@ def physics_rig(name: str, batch: int) -> dict:
         jm=jm, js=js, jp=jp, tau=tau, ext=ext,
         tm=get_model(name), ts=convert.physics_state_from_numpy(state),
         tp=convert.physics_params_from_numpy(export_fields(jp)))
+
+
+def srb_lqr_problem(num: int, m: int, seed: int = 0):
+    """The random dense SRB-LQR problem of tests/test_pallas.py:60-72 at
+    `num` scenarios and `m` inputs, as numpy arrays (F, c, L, Xd, Ud, XTd,
+    x0, f_ff): F is perturbed everywhere, so no sparsity can be assumed."""
+    rng = np.random.default_rng(seed)
+    n = 12
+    F = np.tile(np.eye(n, dtype=np.float32), (num, 1, 1))
+    F[:, 0:3, 6:9] += 0.02 * np.eye(3)
+    F[:, 3:6, 9:12] += 0.02 * np.eye(3)
+    F += 0.01 * rng.normal(size=(num, n, n)).astype(np.float32)
+    c = 0.05 * rng.normal(size=(num, n)).astype(np.float32)
+    L = 0.1 * rng.normal(size=(num, n, m)).astype(np.float32)
+    Xd = np.abs(rng.normal(size=(num, n))).astype(np.float32) + 0.5
+    Ud = np.abs(rng.normal(size=(num, m))).astype(np.float32) * 0.01 + 0.005
+    XTd = 2.0 * Xd
+    x0 = rng.normal(size=(num, n)).astype(np.float32)
+    f_ff = rng.normal(size=(num, m)).astype(np.float32)
+    return F, c, L, Xd, Ud, XTd, x0, f_ff

@@ -1,7 +1,11 @@
 """The CUDA build's generated model header (ops/cuda/build.py), on the CPU:
 sizes and table lengths for ANYmal C, one library per robot and one
-Cholesky library without a model header, each keyed by its own hash."""
+Cholesky and one Riccati library without a model header, each keyed by its
+own hash; and the packaging of the CUDA sources."""
 
+import ast
+import fnmatch
+import os
 import re
 
 import numpy as np
@@ -57,3 +61,34 @@ def test_one_library_per_robot_and_one_cholesky(anymal):
     assert [s.source for s in specs] == ["substep.cu", "substep.cu",
                                          "cholesky.cu"]
     assert build.model_spec(anymal).key() == keys[1]  # stable
+
+
+def test_riccati_spec_builds_without_a_model_header():
+    spec = build.RICCATI_SPEC
+    assert spec.header is None
+    assert spec.source == "riccati.cu"
+    assert os.path.exists(os.path.join(build.CSRC, spec.source))
+    assert spec.key() != build.CHOLESKY_SPEC.key()
+    assert spec.path().endswith("libpf_riccati.so")
+    with open(os.path.join(build.CSRC, spec.source)) as f:
+        src = f.read()
+    assert "pf_model.h" not in src and "rowdyn.cuh" not in src
+    assert "__global__" in src and 'extern "C"' in src
+    assert build._LIBRARY_CLASS[spec.source] is build.RiccatiLibrary
+
+
+def test_every_csrc_file_is_packaged():
+    """Each file under csrc/ matches a package_data pattern of setup.py, so
+    an installed copy of the package can build its kernels."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "setup.py")) as f:
+        tree = ast.parse(f.read())
+    call = next(n for n in ast.walk(tree) if isinstance(n, ast.Call)
+                and getattr(n.func, "id", "") == "setup")
+    data = ast.literal_eval(next(
+        k.value for k in call.keywords if k.arg == "package_data"))
+    patterns = data["pointfoot_tpu_torch"]
+    files = sorted(os.listdir(build.CSRC))
+    assert "rowdyn.cuh" in files and "riccati.cu" in files
+    for name in files:
+        assert any(fnmatch.fnmatch(f"csrc/{name}", p) for p in patterns), name

@@ -14,6 +14,8 @@ import torch
 from pointfoot_tpu_torch.ops.cuda import substep as sp
 from pointfoot_tpu_torch.physics.assets import get_model
 
+from _torch_parity import srb_lqr_problem
+
 pytestmark = pytest.mark.cuda
 
 # not a multiple of the 128-thread block: the last block has idle threads
@@ -182,3 +184,49 @@ def test_cholesky_kernel_matches_plain(n):
                                rtol=3e-3)
     with pytest.raises(ValueError, match="no kernel for n = 7"):
         cholesky.chol_solve_lanes(A_t[:49].contiguous(), b_t[:7].contiguous())
+
+
+# ------------------------------------------------- the SRB-LQR kernel
+
+@pytest.mark.parametrize("num", [B, 4096])
+@pytest.mark.parametrize("m", [6, 12])
+def test_srb_lqr_kernel_matches_plain(m, num):
+    """Tolerance of tests/test_pallas.py:77-78; 1000 scenarios leave the
+    last block with idle threads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pointfoot_tpu_torch.ops.cuda import riccati
+
+    T = 12
+    dev = torch.device("cuda")
+    prob = [torch.tensor(a, device=dev) for a in srb_lqr_problem(num, m, m)]
+    staged = riccati.stage(*prob)
+    before = riccati.srb_lqr_lanes.launches
+    got = riccati.srb_lqr_lanes(*staged, T)
+    assert riccati.srb_lqr_lanes.launches == before + 1
+    want = riccati.srb_lqr_lanes_plain(*staged, T)
+    torch.cuda.synchronize()
+    assert got.shape == (T, m, num)
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+    # and through the (B, ...) entry, against the CPU's plain version
+    out = riccati.srb_lqr(*prob, horizon=T)
+    assert out.shape == (num, T, m)
+    cpu = riccati.srb_lqr(*(a.cpu() for a in prob), horizon=T)
+    torch.testing.assert_close(out.cpu(), cpu, atol=2e-3, rtol=2e-3)
+
+
+def test_srb_lqr_wrapper_rejects_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pointfoot_tpu_torch.ops.cuda import riccati
+
+    dev = torch.device("cuda")
+    prob = [torch.tensor(a, device=dev) for a in srb_lqr_problem(64, 9, 0)]
+    with pytest.raises(ValueError, match="no kernel for n = 12, m = 9"):
+        riccati.srb_lqr(*prob, horizon=4)
+    staged = list(riccati.stage(
+        *(torch.tensor(a, device=dev) for a in srb_lqr_problem(64, 6, 0))))
+    with pytest.raises(ValueError, match="contiguous"):
+        riccati.srb_lqr_lanes(staged[0].t().contiguous().t(), *staged[1:], 4)
+    with pytest.raises(ValueError, match="different devices"):
+        riccati.srb_lqr_lanes(staged[0].cpu(), *staged[1:], 4)

@@ -41,7 +41,7 @@ def test_every_module_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 21
+    assert int(proc.stdout.split()[-1]) >= 26
 
 
 def test_sources_do_not_mention_jax_package():
@@ -95,8 +95,56 @@ def test_slice_modules_import_without_jax():
     assert proc.stdout.split()[-1] == "ok"
 
 
+def test_mpc_slice_modules_import_without_jax():
+    """The modules of the SRB-MPC slice, by name, with JAX blocked; the
+    bench's tick runs on the CPU when asked to."""
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'orbax', 'optax'):\n"
+        "    sys.modules[m] = None\n"
+        "for n in ('mpc', 'mpc.riccati', 'mpc.srb', 'ops.cuda.riccati', "
+        "'ops.cuda.build', 'ops.quat', 'physics.model', 'utils.convert', "
+        "'bench'):\n"
+        "    importlib.import_module('pointfoot_tpu_torch.' + n)\n"
+        "from pointfoot_tpu_torch import bench\n"
+        "rec = bench.main(['--mode', 'mpc', '--device', 'cpu', "
+        "'--num_envs', '4', '--iters', '1', '--reps', '1'])\n"
+        "assert rec['metric'] == 'srb_mpc_scenario_solves_per_sec@4'\n"
+        "assert rec['conditions']['solver'] == 'kernel'\n"
+        "assert rec['conditions']['horizon'] == 12\n"
+        "bad = [m for m in sys.modules if m == 'pointfoot_tpu' or "
+        "m.startswith('pointfoot_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
+
+
+def test_bench_record_and_unported_modes(capsys):
+    import json
+
+    from pointfoot_tpu_torch import bench
+
+    rec = bench.main(["--mode", "mpc", "--device", "cpu", "--num_envs", "3",
+                      "--iters", "1", "--reps", "2", "--solver", "plain"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == rec
+    assert set(rec) == {"metric", "value", "unit", "vs_baseline",
+                        "conditions"}
+    assert rec["unit"] == "solves/s"
+    assert rec["vs_baseline"] == pytest.approx(rec["value"] / (3 * 50.0),
+                                               abs=1e-3)
+    cond = rec["conditions"]
+    assert cond["solver"] == "plain" and cond["card"] == "cpu"
+    assert len(cond["reps_solves_per_sec"]) == 2
+    for mode in ("env", "mpc_ilqr", "actuator_net", "train"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            bench.main(["--mode", mode, "--device", "cpu"])
+
+
 def _entry_points():
-    from pointfoot_tpu_torch import device, play
+    from pointfoot_tpu_torch import bench, device, play
     from pointfoot_tpu_torch.utils import policy_eval, registry
 
     return {
@@ -108,12 +156,13 @@ def _entry_points():
         "make_eval_env": lambda: policy_eval.make_eval_env(
             "pointfoot_rough", 2, policy_eval.FLAGSHIP_PATCH),
         "play": lambda: play.main(["--num_envs", "2", "--steps", "1"]),
+        "bench_mpc": lambda: bench.main(["--mode", "mpc", "--num_envs", "2"]),
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "make_env",
                                   "make_env_anymal", "make_eval_env",
-                                  "play"])
+                                  "play", "bench_mpc"])
 def test_entry_points_raise_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
