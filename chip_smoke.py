@@ -10,19 +10,25 @@ scenarios (the fused SRB-LQR kernel).
 
 1. device and build: the card's name and power limit; the PointFoot,
    ANYmal, A1, Cholesky and Riccati libraries of pointfoot_tpu_torch/csrc/
-   built by parallel nvcc processes (seconds, registers, spills);
+   built by parallel nvcc processes (seconds, registers, spills, shared
+   memory a block, resident warps an SM);
 2. PointFoot kernels against their plain PyTorch versions on a state
    reached after 20 policy steps, with a push queued: the full decimation
    rollout, one rollout substep and the sphere FK, each within its stated
-   tolerance;
+   tolerance; the rollout substep also at 1000, 1 and 4099 envs (batches
+   that leave a block's groups idle), and two launches bit for bit;
 3. step_batched's kernels against their plain versions on an anymal_c_rough
    state reached after 20 steps of the bench action signal, with a push
    queued: the mega-kernel route (sphere-xy FK, surface query, substep
-   kernel) against the plain path, the FK-xy kernel against its twin, and
+   kernel) against the plain path, the substep kernel against its twin at
+   4096, 1000, 1 and 4099 envs and two launches bit for bit, the FK-xy
+   kernel against its twin, and
    the Cholesky kernel against ops/linalg.chol_solve on the velocity
    systems of 2048 ANYmal and 2048 PointFoot envs;
-   for every kernel: per-launch time of kernel and plain version by CUDA
-   events, and the least time the card could take (bytes over 3.35 TB/s or
+   for every kernel: per-launch time of the kernel (its launches replayed
+   from a CUDA graph, so the device's time; and a loop of wrapper calls,
+   which cannot show less than the host's time to enqueue one) and of the
+   plain version by CUDA events, and the least time the card could take (bytes over 3.35 TB/s or
    float32 operations over 67 TFLOP/s); the Cholesky kernel also beside
    torch.linalg.cholesky + torch.cholesky_solve;
 4. the PointFoot rollout at full width: 500 policy steps with the launch
@@ -36,10 +42,12 @@ scenarios (the fused SRB-LQR kernel).
    pushes, 2 s) inside the band the JAX package gives;
 6. anymal_c_rough at 2048 envs, the Cholesky route: 25 steps, Cholesky
    kernel 4x the step count, substep kernel 0;
-7. the SRB-LQR kernel against its plain version at 4096 and 1000
+7. the SRB-LQR kernel against its plain version at 4096, 1000, 1 and 4099
    scenarios, on the PointFoot tick's own problems (m = 6), A1's (m = 12)
-   and random dense problems, horizon 12; its per-launch time, bound, and
-   the time of the sequential Riccati solver on the same problems;
+   and random dense problems, horizon 12; at horizon 1 and at a horizon
+   whose gains leave shared memory for the global work space; two launches
+   bit for bit; its per-launch time, bound, and the time of the sequential
+   Riccati solver on the same problems;
 8. the SRB-MPC tick at full width through pointfoot_tpu_torch.bench: 4096
    PointFoot scenarios, horizon 12, one SRB-LQR launch per tick and no
    other kernel, solves/s against real time (50 Hz), a per-layer
@@ -67,6 +75,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from pointfoot_tpu_torch import bench
+from pointfoot_tpu_torch.kernel_times import dense_problem, graph_ms
+from pointfoot_tpu_torch.kernel_times import events_ms as cuda_ms
 from pointfoot_tpu_torch.mpc import srb
 from pointfoot_tpu_torch.ops.cuda import build
 from pointfoot_tpu_torch.ops.cuda import cholesky as ch
@@ -120,7 +130,10 @@ GATE_MAX_TERMINATED = 0.02  # share of envs
 # SRB-MPC: kernel vs plain version, tests/test_pallas.py:77-78; kernel tick
 # vs sequential-solver tick, tests/test_srb_pallas.py:41-45
 LQR_TOL = 2e-3  # rtol and atol
-LQR_RAGGED = 1000  # a batch whose last block has idle threads
+# batches that leave idle groups in the last block: a round count that is
+# no multiple of a block, one item, and a prime above the full width
+RAGGED = (1000, 1, 4099)
+LQR_LONG_HORIZON = 96  # its gains do not fit in a block's shared memory
 TICK_TAU_TOL = (2e-3, 2e-2)  # (rtol, atol), N·m
 TICK_FORCE_TOL = (2e-3, 5e-2)  # (rtol, atol), N
 MPC_ITERS, MPC_REPS = 20, 3
@@ -134,21 +147,6 @@ SRB_GATE_TICKS, SRB_GATE_SUBSTEPS, SRB_GATE_DT = 50, 4, 0.005
 
 def log(*args):
     print(*args, flush=True)
-
-
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call of fn, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 # ops that only move or view data; everything else counts one operation per
@@ -212,16 +210,49 @@ def expect_counts(got: dict, **want):
         raise AssertionError(f"launch counts {got} != {full}")
 
 
-def kernel_record(name, source, replaces, launches, err, ms, plain_ms,
-                  nbytes, ops, library_ms=None):
+def kernel_ms(fn) -> dict:
+    """A kernel's time per launch: `ms` with its launches replayed from a
+    CUDA graph (the device's time), `wrapper_ms` around a loop of calls of
+    its wrapper (at least the host's time to enqueue one)."""
+    return dict(wrapper_ms=cuda_ms(fn, 200), ms=graph_ms(fn))
+
+
+def kernel_record(name, source, replaces, launches, err, ms, wrapper_ms,
+                  plain_ms, nbytes, ops, library_ms=None):
     b_ms, b_by = bound(nbytes, ops)
-    log(f"[kernels] {name}: {ms:.4f} ms/launch (plain {plain_ms:.2f} ms"
+    log(f"[kernels] {name}: {ms:.4f} ms/launch on the device, "
+        f"{wrapper_ms:.4f} in a loop of wrapper calls (plain "
+        f"{plain_ms:.2f} ms"
         + ("" if library_ms is None else f", library {library_ms:.4f} ms")
         + f"), {nbytes} B, {ops} ops, bound {b_ms:.5f} ms by {b_by}")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms}
+            "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
+def ragged_columns(tensors, num: int):
+    """The first `num` columns of (rows, B) tensors; beyond B the columns
+    start over, so 4099 of 4096 repeats the first three."""
+    out = []
+    for t in tensors:
+        if t is None:
+            out.append(None)
+            continue
+        reps = -(-num // t.shape[1])
+        out.append(torch.cat([t] * reps, dim=1)[:, :num].contiguous())
+    return tuple(out)
+
+
+def check_same_bits(what: str, fn):
+    """Two launches on the same inputs give identical bits."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if isinstance(a, torch.Tensor):
+        a, b = (a,), (b,)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{what}: two launches differ")
+    log(f"[kernels] {what}: two launches give identical bits")
 
 
 def slice_batch(obj, n: int):
@@ -256,6 +287,30 @@ def build_kernels(mc_pf, mc_any, mc_a1):
         for line in lib.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"[build]   {line.strip()}")
+    for what, lib in zip(("PointFoot", "ANYmal", "A1"), libs):
+        warps = [lib.lib.pf_substep_resident_warps(k) for k in (0, 1)]
+        log(f"[build] {what} substep kernels: "
+            f"{lib.lib.pf_substep_smem_bytes()} B of dynamic shared memory a "
+            f"block (8 envs, 4 lanes each)")
+        log(f"[kernels] {what}: resident warps an SM "
+            f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor): "
+            f"rollout_substep_kernel {warps[0]}, substep_kernel {warps[1]}")
+        if min(warps) < 1:
+            raise AssertionError(f"{what}: a substep kernel does not fit an "
+                                 f"SM: resident warps {warps}")
+    for m in rk.SIZES:
+        for horizon in (1, 12, LQR_LONG_HORIZON):
+            nbytes, shared = rk.smem_plan(m, horizon)
+            warps = libs[4].lib.pf_srb_lqr_resident_warps(m, horizon,
+                                                          int(shared))
+            log(f"[kernels] srb_lqr_kernel<{m}> horizon {horizon}: {nbytes} "
+                f"B of dynamic shared memory a block (8 scenarios, 16 lanes "
+                f"each), gains in "
+                f"{'shared memory' if shared else 'the global work space'}, "
+                f"resident warps an SM {warps}")
+            if warps < 1:
+                raise AssertionError(f"srb_lqr_kernel<{m}> does not fit an "
+                                     f"SM at horizon {horizon}")
 
 
 # ------------------------------------------ 2. PointFoot kernels vs plain
@@ -286,6 +341,29 @@ def check_rollout(got, want):
         if not np.isfinite(v):
             raise AssertionError(f"non-finite rollout error {errs}")
     return errs
+
+
+def check_rollout_step(mc, step_args):
+    """Hold one rollout substep to its plain version: (max |err| over all
+    rows, over the state rows, over the forces, the kernel's extra rows)."""
+    ks, ke = sp.rollout_step(*step_args)
+    ps, pe = sp.rollout_step_plain(*step_args)
+    torch.cuda.synchronize()
+    nj, nc = mc.nj, mc.nc
+    state_err = max_err(ks, ps)
+    force_err = (ke[nj:nj + 3 * nc] - pe[nj:nj + 3 * nc]).abs()
+    if ks.shape != ps.shape or ke.shape != pe.shape or not (
+            state_err <= ROLLOUT_TOL["qvel"]
+            and bool((force_err <= FORCE_ATOL + FORCE_RTOL
+                      * pe[nj:nj + 3 * nc].abs()).all())
+            and max_err(ke[:nj], pe[:nj]) <= ROLLOUT_TOL["tau"]
+            and max_err(ke[nj + 3 * nc:], pe[nj + 3 * nc:])
+            <= ROLLOUT_TOL["sphere_pos"]):
+        raise AssertionError(
+            f"rollout_step B={ks.shape[1]}: state {state_err}, forces "
+            f"{float(force_err.max())}")
+    return (max(state_err, max_err(ke, pe)), state_err,
+            float(force_err.max()), ke)
 
 
 def pointfoot_kernels(env, mc, policy):
@@ -319,31 +397,25 @@ def pointfoot_kernels(env, mc, policy):
     step_args = (mc, state_rows, ctrl_rows, surf_rows, True,
                  env.default_qpos_values, c.action_scale, c.control_type,
                  env.cfg.sim.dt, env.cfg.sim.gravity)
-    ks, ke = sp.rollout_step(*step_args)
-    ps, pe = sp.rollout_step_plain(*step_args)
+    step_err, state_err, force_err, ke = check_rollout_step(mc, step_args)
+    for num in RAGGED:
+        part = ragged_columns((state_rows, ctrl_rows, surf_rows), num)
+        errs = check_rollout_step(mc, (mc, *part) + step_args[4:])
+        log(f"[kernels] rollout_substep B={num}: max |err| {errs[0]:.3g} "
+            f"(state rows {errs[1]:.3g}, forces {errs[2]:.3g})")
+    check_same_bits("rollout_substep", lambda: sp.rollout_step(*step_args))
     nj, nc = mc.nj, mc.nc
-    step_err = max(max_err(ks, ps), max_err(ke, pe))
-    state_err = max_err(ks, ps)
-    force_err = (ke[nj:nj + 3 * nc] - pe[nj:nj + 3 * nc]).abs()
-    if not (state_err <= ROLLOUT_TOL["qvel"]
-            and bool((force_err <= FORCE_ATOL + FORCE_RTOL
-                      * pe[nj:nj + 3 * nc].abs()).all())
-            and max_err(ke[:nj], pe[:nj]) <= ROLLOUT_TOL["tau"]
-            and max_err(ke[nj + 3 * nc:], pe[nj + 3 * nc:])
-            <= ROLLOUT_TOL["sphere_pos"]):
-        raise AssertionError(f"rollout_step: state {state_err}, forces "
-                             f"{float(force_err.max())}")
     fk_k = sp.fk_rows(mc, state_rows)
     fk_err = max_err(fk_k, xyz)
     if not fk_err <= FK_TOL:
         raise AssertionError(f"fk_rows: max |err| {fk_err} > {FK_TOL}")
     log(f"[kernels] rollout_substep max |err| {step_err:.3g} (state rows "
-        f"{state_err:.3g}, forces {float(force_err.max()):.3g}); "
+        f"{state_err:.3g}, forces {force_err:.3g}); "
         f"fk_from_state max |err| {fk_err:.3g}")
 
     R_state, R_ctrl = state_rows.shape[0], ctrl_rows.shape[0]
     roll = dict(
-        err=step_err, ms=cuda_ms(lambda: sp.rollout_step(*step_args), 200),
+        err=step_err, **kernel_ms(lambda: sp.rollout_step(*step_args)),
         plain_ms=cuda_ms(lambda: sp.rollout_step_plain(*step_args), 3,
                          warmup=1),
         nbytes=4 * NUM_ENVS * (R_state + R_ctrl + surf_rows.shape[0]
@@ -352,7 +424,7 @@ def pointfoot_kernels(env, mc, policy):
     # the FK reads base_pos, base_quat and qpos (7 + nj rows) and writes
     # 3·nc rows
     fk = dict(
-        err=fk_err, ms=cuda_ms(lambda: sp.fk_rows(mc, state_rows), 200),
+        err=fk_err, **kernel_ms(lambda: sp.fk_rows(mc, state_rows)),
         plain_ms=cuda_ms(lambda: sp.fk_rows_plain(mc, state_rows), 5,
                          warmup=1),
         nbytes=4 * NUM_ENVS * (7 + nj + 3 * nc),
@@ -418,6 +490,31 @@ def check_cholesky(A_t, b_t, what):
     return float(err.max())
 
 
+def check_step_rows(mc, in_rows, surf_rows, dt, grav):
+    """Hold the substep kernel to its plain twin on the same rows, field by
+    field within STEP_TOL: (kernel rows, max |err|, max |err| over the state
+    rows)."""
+    k_rows = sp.step_rows(mc, in_rows, surf_rows, dt, grav)
+    p_rows = sp.step_rows_plain(mc, in_rows, surf_rows, dt, grav)
+    torch.cuda.synchronize()
+    if k_rows.shape != p_rows.shape or \
+            not bool(torch.isfinite(k_rows).all()):
+        raise AssertionError(f"substep kernel: shape {tuple(k_rows.shape)} "
+                             f"or non-finite rows")
+    row = 0
+    for name, cnt in sp.substep_out_layout(mc.nj, mc.nc):
+        atol, rtol = STEP_TOL[name]
+        g, w = k_rows[row:row + cnt], p_rows[row:row + cnt]
+        if not bool(((g - w).abs() <= atol + rtol * w.abs()).all()):
+            raise AssertionError(
+                f"substep kernel vs plain twin B={k_rows.shape[1]}: {name} "
+                f"max |err| {max_err(g, w)} beyond atol {atol}, rtol {rtol}")
+        row += cnt
+    n_state = 13 + 2 * mc.nj
+    return (k_rows, max_err(k_rows, p_rows),
+            max_err(k_rows[:n_state], p_rows[:n_state]))
+
+
 def anymal_kernels(env, mc, pf_env, pf_state):
     dev = env.device
     signal = bench_signal(env)
@@ -479,26 +576,30 @@ def anymal_kernels(env, mc, pf_env, pf_state):
     # the substep kernel against its plain twin on the same rows
     in_rows = sp.pack_substep_in(phys, params, tau, push)
     surf_rows = sp.pack_surface(surface)
-    k_rows = sp.step_rows(mc, in_rows, surf_rows, dt, grav)
-    p_rows = sp.step_rows_plain(mc, in_rows, surf_rows, dt, grav)
+    k_rows, sub_err, sub_state_err = check_step_rows(
+        mc, in_rows, surf_rows, dt, grav)
+    for num in RAGGED:
+        part = ragged_columns((in_rows, surf_rows), num)
+        errs = check_step_rows(mc, *part, dt, grav)[1:]
+        log(f"[kernels] substep kernel vs plain twin B={num}: max |err| "
+            f"{errs[0]:.3g} (state rows {errs[1]:.3g})")
+    check_same_bits("substep", lambda: sp.step_rows(mc, in_rows, surf_rows,
+                                                    dt, grav))
     fk_in = sp.pack_fk_in(phys)
     xy_k = sp.fk_xy_rows(mc, fk_in)
     xy_p = sp.fk_xy_rows_plain(mc, fk_in)
     torch.cuda.synchronize()
-    sub_err = max_err(k_rows, p_rows)
     xy_err = max_err(xy_k, xy_p)
     if not xy_err <= FK_TOL:
         raise AssertionError(f"fk_contact_xy: max |err| {xy_err} > {FK_TOL}")
     nj, nc = mc.nj, mc.nc
-    n_state = 13 + 2 * nj
     log(f"[kernels] substep kernel vs plain twin, max |err| {sub_err:.3g} "
-        f"(state rows {max_err(k_rows[:n_state], p_rows[:n_state]):.3g}); "
+        f"(state rows {sub_state_err:.3g}); "
         f"fk_contact_xy max |err| {xy_err:.3g}")
 
     sub = dict(
         err=sub_err,
-        ms=cuda_ms(lambda: sp.step_rows(mc, in_rows, surf_rows, dt, grav),
-                   200),
+        **kernel_ms(lambda: sp.step_rows(mc, in_rows, surf_rows, dt, grav)),
         plain_ms=cuda_ms(lambda: sp.step_rows_plain(
             mc, in_rows, surf_rows, dt, grav), 2, warmup=1),
         nbytes=4 * NUM_ENVS * (in_rows.shape[0] + surf_rows.shape[0]
@@ -506,7 +607,7 @@ def anymal_kernels(env, mc, pf_env, pf_state):
         ops=count_ops(lambda: sp.step_rows_plain(mc, in_rows, surf_rows, dt,
                                                  grav)))
     fkxy = dict(
-        err=xy_err, ms=cuda_ms(lambda: sp.fk_xy_rows(mc, fk_in), 200),
+        err=xy_err, **kernel_ms(lambda: sp.fk_xy_rows(mc, fk_in)),
         plain_ms=cuda_ms(lambda: sp.fk_xy_rows_plain(mc, fk_in), 5,
                          warmup=1),
         nbytes=4 * NUM_ENVS * (7 + nj + 2 * nc),
@@ -530,7 +631,7 @@ def anymal_kernels(env, mc, pf_env, pf_state):
         return torch.cholesky_solve(b[..., None], torch.linalg.cholesky(A))
 
     chol = dict(
-        err=chol_err, ms=cuda_ms(lambda: ch.chol_solve_lanes(A_t, b_t), 200),
+        err=chol_err, **kernel_ms(lambda: ch.chol_solve_lanes(A_t, b_t)),
         plain_ms=cuda_ms(lambda: ch.chol_solve_lanes_plain(A_t, b_t), 5,
                          warmup=1),
         nbytes=4 * n * (nv * nv + 2 * nv),
@@ -720,32 +821,13 @@ def mpc_scenarios(ctrl, num: int, qdef, height: float, seed: int):
     return phys, 0.3 * randn(num, 3)
 
 
-def dense_problem(m: int, num: int, seed: int, device):
-    """The random dense problem of tests/test_pallas.py:60-72 at `num`
-    scenarios: F perturbed everywhere."""
-    g = torch.Generator(device=device).manual_seed(seed)
-
-    def randn(*shape):
-        return torch.randn(*shape, generator=g, device=device)
-
-    n = 12
-    F = torch.eye(n, device=device).repeat(num, 1, 1)
-    eye3 = torch.eye(3, device=device)
-    F[:, 0:3, 6:9] += 0.02 * eye3
-    F[:, 3:6, 9:12] += 0.02 * eye3
-    F += 0.01 * randn(num, n, n)
-    Xd = randn(num, n).abs() + 0.5
-    return (F, 0.05 * randn(num, n), 0.1 * randn(num, n, m), Xd,
-            randn(num, m).abs() * 0.01 + 0.005, 2.0 * Xd, randn(num, n),
-            randn(num, m))
-
-
-def check_srb_lqr(staged, horizon: int, what: str) -> float:
+def check_srb_lqr(staged, horizon: int, what: str,
+                  sizes=None) -> float:
     """Hold the kernel to its plain version on staged problems, at the full
-    batch and at its first LQR_RAGGED scenarios."""
+    batch and at the RAGGED ones (or at `sizes`)."""
     worst = 0.0
-    for num in (staged[1].shape[1], LQR_RAGGED):
-        part = tuple(t[:, :num].contiguous() for t in staged)
+    for num in sizes or (staged[1].shape[1],) + RAGGED:
+        part = ragged_columns(staged, num)
         got = rk.srb_lqr_lanes(*part, horizon)
         want = rk.srb_lqr_lanes_plain(*part, horizon)
         torch.cuda.synchronize()
@@ -758,7 +840,7 @@ def check_srb_lqr(staged, horizon: int, what: str) -> float:
             raise AssertionError(
                 f"srb_lqr {what} B={num}: max |err| {float(err.max())} "
                 f"beyond rtol/atol {LQR_TOL}")
-        log(f"[kernels] srb_lqr {what} B={num}: max |err| "
+        log(f"[kernels] srb_lqr {what} horizon {horizon} B={num}: max |err| "
             f"{float(err.max()):.3g} of forces up to "
             f"{float(want.abs().max()):.3g} ({100 * share:.2g}% of the "
             f"tolerance)")
@@ -777,21 +859,42 @@ def riccati_kernels(pf_ctrl, a1_ctrl):
     a1_staged = rk.stage(*a1_ctrl.tick_problem(a1_phys, a1_cmd)[0])
     err = max(err, check_srb_lqr(a1_staged, T, "A1 tick problems m=12"))
     for m in rk.SIZES:
-        dense = rk.stage(*dense_problem(m, NUM_ENVS, 9 + m, dev))
+        dense = dense_problem(m, NUM_ENVS, 9 + m, dev)
         err = max(err, check_srb_lqr(dense, T, f"random dense m={m}"))
+    # both homes of the gains: one step, and a horizon that no longer fits
+    # in a block's shared memory
+    for staged, what in ((pf_staged, "PointFoot tick problems m=6"),
+                         (a1_staged, "A1 tick problems m=12")):
+        m = staged[4].shape[0]
+        if not rk.smem_plan(m, T)[1] or not rk.smem_plan(m, 1)[1] or \
+                rk.smem_plan(m, LQR_LONG_HORIZON)[1]:
+            raise AssertionError(
+                f"smem_plan: m = {m} should keep the gains in shared memory "
+                f"at horizons 1 and {T} and not at {LQR_LONG_HORIZON}")
+        for horizon in (1, LQR_LONG_HORIZON):
+            err = max(err, check_srb_lqr(staged, horizon, what,
+                                         sizes=(RAGGED[0],)))
+    check_same_bits("srb_lqr m=6",
+                    lambda: rk.srb_lqr_lanes(*pf_staged, T))
+    check_same_bits("srb_lqr m=12",
+                    lambda: rk.srb_lqr_lanes(*a1_staged, T))
+    check_same_bits(
+        f"srb_lqr m=6 horizon {LQR_LONG_HORIZON}",
+        lambda: rk.srb_lqr_lanes(*pf_staged, LQR_LONG_HORIZON))
 
     # per launch, at the main path's shapes: the PointFoot problems
     n, m = 12, pf_staged[4].shape[0]
     rec = dict(
-        err=err, ms=cuda_ms(lambda: rk.srb_lqr_lanes(*pf_staged, T), 100),
+        err=err, **kernel_ms(lambda: rk.srb_lqr_lanes(*pf_staged, T)),
         plain_ms=cuda_ms(lambda: rk.srb_lqr_lanes_plain(*pf_staged, T), 3,
                          warmup=1),
         nbytes=4 * NUM_ENVS * (n * n + n * m + 4 * n + 2 * m + T * m),
         ops=count_ops(lambda: rk.srb_lqr_lanes_plain(*pf_staged, T)))
-    a1_ms = cuda_ms(lambda: rk.srb_lqr_lanes(*a1_staged, T), 50)
+    a1_ms = graph_ms(lambda: rk.srb_lqr_lanes(*a1_staged, T))
     seq_ms = cuda_ms(lambda: srb.sequential_srb_lqr(*pf_prob, horizon=T), 3,
                      warmup=1)
-    log(f"[kernels] srb_lqr at A1 m=12 B={NUM_ENVS}: {a1_ms:.4f} ms/launch")
+    log(f"[kernels] srb_lqr at A1 m=12 B={NUM_ENVS}: {a1_ms:.4f} ms/launch "
+        f"on the device")
     log(f"[kernels] sequential Riccati solver (plan_tick's) on the PointFoot "
         f"problems: {seq_ms:.2f} ms (no single PyTorch call computes the "
         f"solve: library_ms is null)")

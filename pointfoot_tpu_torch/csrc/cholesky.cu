@@ -20,7 +20,7 @@
 // Bound.  At N = 18 a system moves (324 + 18 + 18) · 4 B = 1440 B and needs
 // about N³/6 + N² ≈ 1300 multiply-adds: at B = 2048 about 2.9 MB, 0.88 µs
 // of HBM time at 3.35 TB/s, against a few tenths of a µs at the FP32 peak.
-// Like the substep kernel it is bound by one thread's dependent chain, with
+// It is bound by one thread's dependent chain, with
 // 2048 threads on 132 SMs.  This is the simple version.
 
 #include <cuda_runtime.h>

@@ -9,26 +9,28 @@
 // ops/cuda/substep.py (rollout_step_plain, fk_rows_plain, step_rows_plain,
 // fk_xy_rows_plain).  The substep itself is rowdyn.cuh's substep_body.
 //
-// Design.  One thread per env runs the whole straight-line program.
-// Tensors are rows × envs (SoA, each row B contiguous floats), so the
-// threads of a warp read and write neighbouring addresses.  The tail block
-// returns early for e >= B (the TPU kernels padded with copies of env 0).
+// Design.  Tensors are rows x envs (SoA, each row B contiguous floats).
+// The two substep kernels give each env a group of four lanes and a slab
+// of shared memory (rowdyn.cuh, substep_group): a block is one warp, eight
+// envs, so 4096 envs are 512 blocks, four resident on each of the 132 SMs.
+// The warp sweeps the block's rows into the slabs (the eight envs of a
+// block are 32 contiguous bytes of every row, four rows a pass), runs the
+// substep in phases, and sweeps the outputs back.  The tail block clamps
+// its env index to B - 1 and skips the stores, so every lane reaches every
+// barrier (the TPU kernels padded with copies of env 0).
 //   - rollout_substep_kernel: PD torque, the substep with the queued push on
 //     substep 0, FK of the new state (the fused decimation rollout);
 //   - substep_kernel: the substep with torque, base force and surface rows
 //     as inputs; the force applies on every call (step_batched passes the
 //     push on substep 0 only);
-//   - fk_from_state_kernel / fk_contact_xy_kernel: sphere xyz / xy.
+//   - fk_from_state_kernel / fk_contact_xy_kernel: sphere xyz / xy, one
+//     thread per env, straight-line code with the model folded in.
 //
-// Bound.  PointFoot's rollout substep moves (31 + 42 + 36 + 31 + 60) · 4 B
-// = 800 B per env and ANYmal's substep (83 + 52 + 76) · 4 B = 844 B: at
-// 4096 envs about 3.3-3.5 MB, 1 µs of HBM time at 3.35 TB/s, and a few
-// tenths of a µs at the FP32 peak — far below what a 4096-thread launch
-// (32 blocks of 128 on 132 SMs) can reach.  The kernels are bound by
-// latency: each thread runs a long dependent chain whose arrays (mass
-// matrix, Cholesky factor; 171 entries at ANYmal's nv = 18) spill to local
-// memory.  Occupancy and spills are the work of a later change; this one
-// is right and simple.
+// Bound.  PointFoot's rollout substep moves (31 + 42 + 36 + 31 + 60) * 4 B
+// = 800 B per env and ANYmal's substep (83 + 52 + 76) * 4 B = 844 B: at
+// 4096 envs about 3.3-3.5 MB, 1 us of HBM time at 3.35 TB/s, and about as
+// much at the float32 peak.  The kernels are bound by latency, not by
+// either: see rowdyn.cuh for what the group-of-lanes design does about it.
 
 #include "rowdyn.cuh"
 
@@ -65,42 +67,44 @@ constexpr int O_FORCE = S_QVEL + NJ, R_SUB_OUT = O_FORCE + 3 * NC;
 // FK input rows: base_pos 3, base_quat 4, qpos
 constexpr int K_POS = 0, K_QUAT = 3, K_QPOS = 7, R_FK_IN = K_QPOS + NJ;
 
-constexpr int THREADS = 128;
+constexpr int THREADS = 128;  // the per-thread FK kernels
+constexpr int SUB_THREADS = LANES * ENVS_PER_BLOCK;  // the substep kernels
+constexpr int SUB_SMEM = ENVS_PER_BLOCK * slab::STRIDE * 4;  // bytes a block
+// rows a warp sweeps in one pass
+constexpr int SWEEP = SUB_THREADS / ENVS_PER_BLOCK;
 
-// The state rows shared by the rollout state, the substep input and the
-// substep output (the first 13 + 2·nj rows of each).
-__device__ __forceinline__ void read_state(const float* __restrict__ rows,
-                                           size_t Bs, int e, SubstepIn& in) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    in.base_pos[i] = rows[(S_POS + i) * Bs + e];
-    in.lin[i] = rows[(S_LIN + i) * Bs + e];
-    in.ang[i] = rows[(S_ANG + i) * Bs + e];
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) in.quat[i] = rows[(S_QUAT + i) * Bs + e];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    in.qpos[j] = rows[(S_QPOS + j) * Bs + e];
-    in.qvel[j] = rows[(S_QVEL + j) * Bs + e];
-  }
+// the slab's input part is substep_kernel's input rows, its output part
+// the output rows; the rollout's control rows are staged in the slab's
+// sphere records
+static_assert(slab::I_SURF == R_SUB_IN && slab::I_TAU == S_LQVEL &&
+                  slab::O_FORCE == O_FORCE && slab::I_TAU == I_TAU &&
+                  slab::I_DC == I_DC,
+              "slab layout and row layout differ");
+static_assert(slab::A - slab::SPH >= R_CTRL, "no room to stage the controls");
+static_assert(SUB_SMEM <= 232448, "a block's slabs exceed shared memory");
+
+// nrows rows of column es into dst, a row every SWEEP lanes
+__device__ __forceinline__ void sweep_in(const float* __restrict__ rows,
+                                         int nrows, size_t Bs, int es, int r0,
+                                         float* dst) {
+  for (int r = r0; r < nrows; r += SWEEP) dst[r] = rows[r * Bs + es];
 }
 
-__device__ __forceinline__ void write_state(float* __restrict__ rows,
-                                            size_t Bs, int e,
-                                            const SubstepOut& out) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    rows[(S_POS + i) * Bs + e] = out.base_pos[i];
-    rows[(S_LIN + i) * Bs + e] = out.lin[i];
-    rows[(S_ANG + i) * Bs + e] = out.ang[i];
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) rows[(S_QUAT + i) * Bs + e] = out.quat[i];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    rows[(S_QPOS + j) * Bs + e] = out.qpos[j];
-    rows[(S_QVEL + j) * Bs + e] = out.qvel[j];
+__device__ __forceinline__ void sweep_out(float* __restrict__ rows, int nrows,
+                                          size_t Bs, int es, int r0,
+                                          const float* src) {
+  for (int r = r0; r < nrows; r += SWEEP) rows[r * Bs + es] = src[r];
+}
+
+// Surface rows into the slab; flat ground at z = 0 without them.
+__device__ __forceinline__ void sweep_surface(const float* __restrict__ surf,
+                                              size_t Bs, int es, int r0,
+                                              float* dst) {
+  if (surf != nullptr) {
+    sweep_in(surf, R_SURF, Bs, es, r0, dst);
+  } else {
+    for (int r = r0; r < R_SURF; r += SWEEP)
+      dst[r] = r >= NC && (r - NC) % 3 == 2 ? 1.0f : 0.0f;
   }
 }
 
@@ -120,108 +124,100 @@ __device__ __forceinline__ void sphere_world(const float base_pos[3],
   }
 }
 
-__global__ void __launch_bounds__(THREADS) rollout_substep_kernel(
+__global__ void __launch_bounds__(SUB_THREADS) rollout_substep_kernel(
     const float* __restrict__ state, const float* __restrict__ ctrl,
     const float* __restrict__ surf, float* __restrict__ out_state,
     float* __restrict__ out_extra, int B, int with_push, int control_type,
     PfJointVec default_qpos, float action_scale, float dt, float gravity) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= B) return;
+  extern __shared__ float smem[];
   const size_t Bs = static_cast<size_t>(B);
-  auto in_c = [&](int r) { return ctrl[r * Bs + e]; };
+  const int tid = threadIdx.x;
+  const int e0 = blockIdx.x * ENVS_PER_BLOCK;
+  // sweeping: column `es` of row r0, r0 + SWEEP, ...
+  const int r0 = tid / ENVS_PER_BLOCK;
+  const bool store = e0 + tid % ENVS_PER_BLOCK < B;
+  const int es = min(e0 + tid % ENVS_PER_BLOCK, B - 1);
+  float* ss = smem + (tid % ENVS_PER_BLOCK) * slab::STRIDE;
+  // computing: lane `lane` of the group of slab `sl`
+  const int lane = tid % LANES;
+  float* sl = smem + (tid / LANES) * slab::STRIDE;
 
-  SubstepIn in;
-  read_state(state, Bs, e, in);
+  // the state rows fill the slab's state part; last_qvel lands in tau's
+  // place until the torque replaces it
+  sweep_in(state, R_STATE, Bs, es, r0, ss);
+  sweep_in(ctrl, R_CTRL, Bs, es, r0, ss + slab::SPH);
+  sweep_surface(surf, Bs, es, r0, ss + slab::I_SURF);
+  __syncwarp();
 
-  // ---- PD torque (control type 0 P, 1 V, 2 T), clipped to the effort limit
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const float scaled = in_c(C_ACT + j) * action_scale;
+  // ---- PD torque (control type 0 P, 1 V, 2 T), clipped to the effort
+  // limit, and the per-env parameters
+  const float* in_c = sl + slab::SPH;
+  for (int j = lane; j < NJ; j += LANES) {
+    const float scaled = in_c[C_ACT + j] * action_scale;
+    const float qp = sl[slab::I_QPOS + j], qv = sl[slab::I_QVEL + j];
     float t;
     if (control_type == 0) {
-      t = in_c(C_KP + j) * (scaled + default_qpos.v[j] - in.qpos[j]) -
-          in_c(C_KD + j) * in.qvel[j];
+      t = in_c[C_KP + j] * (scaled + default_qpos.v[j] - qp) -
+          in_c[C_KD + j] * qv;
     } else if (control_type == 1) {
-      t = in_c(C_KP + j) * (scaled - in.qvel[j]) -
-          in_c(C_KD + j) *
-              ((in.qvel[j] - state[(S_LQVEL + j) * Bs + e]) / dt);
+      t = in_c[C_KP + j] * (scaled - qv) -
+          in_c[C_KD + j] * ((qv - sl[slab::I_TAU + j]) / dt);
     } else {
       t = scaled;
     }
-    in.tau[j] = clipp(t, -pf_effort_limit(j), pf_effort_limit(j));
+    sl[slab::I_TAU + j] =
+        clipp(t, -pfr_effort_limit[j], pfr_effort_limit[j]);
+    sl[slab::I_JFRIC + j] = in_c[C_JFRIC + j];
   }
+  for (int c = lane; c < NC; c += LANES)
+    sl[slab::I_FRIC + c] = in_c[C_FRIC + c];
+  if (lane == LANES - 1) {
 #pragma unroll
-  for (int r = 0; r < 3; ++r) in.ext[r] = with_push ? in_c(C_PUSH + r) : 0.0f;
-#pragma unroll
-  for (int c = 0; c < NC; ++c) in.friction[c] = in_c(C_FRIC + c);
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) in.jfric[j] = in_c(C_JFRIC + j);
-  in.added_mass = in_c(C_AMASS);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) in.com_offset[i] = in_c(C_COM + i);
-  in.k_c = in_c(C_KC);
-  in.d_c = in_c(C_DC);
+    for (int r = 0; r < 3; ++r) {
+      sl[slab::I_EXT + r] = with_push ? in_c[C_PUSH + r] : 0.0f;
+      sl[slab::I_COM + r] = in_c[C_COM + r];
+    }
+    sl[slab::I_AMASS] = in_c[C_AMASS];
+    sl[slab::I_KC] = in_c[C_KC];
+    sl[slab::I_DC] = in_c[C_DC];
+  }
+  __syncwarp();
 
-  SubstepOut out;
-  substep_body(in, surf, Bs, e, dt, gravity, out);
+  substep_group(sl, lane, dt, gravity);
+  const float* o = sl + slab::OUT;
+  sphere_world_group(sl, lane, o + slab::I_POS, o + slab::I_QUAT,
+                     o + slab::I_QPOS, sl + slab::OUT + slab::O_XYZ);
+  __syncwarp();
 
   // ---- outputs: new state (last_qvel <- this substep's input qvel),
   // torque, contact forces, sphere positions of the new state
-  write_state(out_state, Bs, e, out);
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    out_state[(S_LQVEL + j) * Bs + e] = in.qvel[j];
-    out_extra[(X_TAU + j) * Bs + e] = in.tau[j];
+  if (store) {
+    sweep_out(out_state, S_LQVEL, Bs, es, r0, ss + slab::OUT);
+    sweep_out(out_state + S_LQVEL * Bs, NJ, Bs, es, r0, ss + slab::I_QVEL);
+    sweep_out(out_extra + X_TAU * Bs, NJ, Bs, es, r0, ss + slab::I_TAU);
+    sweep_out(out_extra + X_FORCE * Bs, 6 * NC, Bs, es, r0,
+              ss + slab::OUT + slab::O_FORCE);
   }
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int r = 0; r < 3; ++r)
-      out_extra[(X_FORCE + 3 * c + r) * Bs + e] = out.force[c][r];
-  float xyz[NC][3];
-  sphere_world(out.base_pos, out.quat, out.qpos, xyz);
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      out_extra[(X_XYZ + 3 * c + i) * Bs + e] = xyz[c][i];
 }
 
-__global__ void __launch_bounds__(THREADS) substep_kernel(
+__global__ void __launch_bounds__(SUB_THREADS) substep_kernel(
     const float* __restrict__ rows, const float* __restrict__ surf,
     float* __restrict__ out_rows, int B, float dt, float gravity) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= B) return;
+  extern __shared__ float smem[];
   const size_t Bs = static_cast<size_t>(B);
-  auto in_r = [&](int r) { return rows[r * Bs + e]; };
+  const int tid = threadIdx.x;
+  const int e0 = blockIdx.x * ENVS_PER_BLOCK;
+  const int r0 = tid / ENVS_PER_BLOCK;
+  const bool store = e0 + tid % ENVS_PER_BLOCK < B;
+  const int es = min(e0 + tid % ENVS_PER_BLOCK, B - 1);
+  float* ss = smem + (tid % ENVS_PER_BLOCK) * slab::STRIDE;
 
-  SubstepIn in;
-  read_state(rows, Bs, e, in);
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    in.tau[j] = in_r(I_TAU + j);
-    in.jfric[j] = in_r(I_JFRIC + j);
-  }
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    in.ext[i] = in_r(I_EXT + i);
-    in.com_offset[i] = in_r(I_COM + i);
-  }
-#pragma unroll
-  for (int c = 0; c < NC; ++c) in.friction[c] = in_r(I_FRIC + c);
-  in.added_mass = in_r(I_AMASS);
-  in.k_c = in_r(I_KC);
-  in.d_c = in_r(I_DC);
-
-  SubstepOut out;
-  substep_body(in, surf, Bs, e, dt, gravity, out);
-
-  write_state(out_rows, Bs, e, out);
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int r = 0; r < 3; ++r)
-      out_rows[(O_FORCE + 3 * c + r) * Bs + e] = out.force[c][r];
+  sweep_in(rows, R_SUB_IN, Bs, es, r0, ss);
+  sweep_surface(surf, Bs, es, r0, ss + slab::I_SURF);
+  __syncwarp();
+  substep_group(smem + (tid / LANES) * slab::STRIDE, tid % LANES, dt,
+                gravity);
+  if (store) sweep_out(out_rows, R_SUB_OUT, Bs, es, r0, ss + slab::OUT);
 }
 
 __global__ void __launch_bounds__(THREADS) fk_from_state_kernel(
@@ -265,6 +261,26 @@ __global__ void __launch_bounds__(THREADS) fk_contact_xy_kernel(
 }
 
 int blocks_for(int B) { return (B + THREADS - 1) / THREADS; }
+int sub_blocks_for(int B) {
+  return (B + ENVS_PER_BLOCK - 1) / ENVS_PER_BLOCK;
+}
+
+// Lets a substep kernel use its slabs (above the 48 KB default).
+template <class Kernel>
+cudaError_t allow_slabs(Kernel kernel) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SUB_SMEM);
+}
+
+template <class Kernel>
+int resident_warps(Kernel kernel) {
+  int blocks = 0;
+  if (allow_slabs(kernel) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kernel, SUB_THREADS, SUB_SMEM) != cudaSuccess)
+    return -1;
+  return blocks * SUB_THREADS / 32;
+}
 
 }  // namespace
 
@@ -285,6 +301,17 @@ void pf_layout(int* out) {
   out[8] = R_FK_IN;
 }
 
+// Dynamic shared memory of one block of the two substep kernels, in bytes.
+int pf_substep_smem_bytes() { return SUB_SMEM; }
+
+// Warps that one SM holds of the rollout substep kernel (which = 0) or the
+// substep kernel (1), by cudaOccupancyMaxActiveBlocksPerMultiprocessor;
+// -1 on an error.
+int pf_substep_resident_warps(int which) {
+  return which == 0 ? resident_warps(rollout_substep_kernel)
+                    : resident_warps(substep_kernel);
+}
+
 // One decimation substep for B envs on `stream`.  `surf` may be null (flat
 // ground at z = 0).  Returns the cudaError_t of the launch.
 int pf_rollout_substep(const float* state, const float* ctrl,
@@ -293,7 +320,9 @@ int pf_rollout_substep(const float* state, const float* ctrl,
                        PfJointVec default_qpos, float action_scale, float dt,
                        float gravity, void* stream) {
   if (B <= 0) return 0;
-  rollout_substep_kernel<<<blocks_for(B), THREADS, 0,
+  cudaError_t err = allow_slabs(rollout_substep_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rollout_substep_kernel<<<sub_blocks_for(B), SUB_THREADS, SUB_SMEM,
                            static_cast<cudaStream_t>(stream)>>>(
       state, ctrl, surf, out_state, out_extra, B, with_push, control_type,
       default_qpos, action_scale, dt, gravity);
@@ -305,7 +334,9 @@ int pf_rollout_substep(const float* state, const float* ctrl,
 int pf_substep(const float* rows, const float* surf, float* out_rows, int B,
                float dt, float gravity, void* stream) {
   if (B <= 0) return 0;
-  substep_kernel<<<blocks_for(B), THREADS, 0,
+  cudaError_t err = allow_slabs(substep_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  substep_kernel<<<sub_blocks_for(B), SUB_THREADS, SUB_SMEM,
                    static_cast<cudaStream_t>(stream)>>>(rows, surf, out_rows,
                                                         B, dt, gravity);
   return static_cast<int>(cudaGetLastError());

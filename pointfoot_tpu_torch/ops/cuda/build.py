@@ -73,9 +73,45 @@ def _table(name: str, values, dims, ctype: str = "float") -> str:
             f"  return t{index};\n}}\n")
 
 
+def _array(name: str, values, dims, ctype: str = "float") -> str:
+    """`pfr_<name>`, the same data as a device array that a kernel indexes
+    at run time (lanes of a group work on different bodies)."""
+    shape = "".join(f"[{d}]" for d in dims)
+    return (f"static __device__ const {ctype} pfr_{name}{shape} = "
+            f"{_lit(values, ctype)};\n")
+
+
+def _padded(rows, width: int):
+    return [list(r) + [0] * (width - len(r)) for r in rows]
+
+
+def branches(mc: ModelConsts):
+    """The subtrees below the base, in the order of their first body: for
+    each, its bodies (ascending, so parents come first) and its collision
+    spheres (ascending)."""
+    root = {}
+    for b in range(1, mc.nb):
+        p = mc.parent[b]
+        root[b] = b if p == 0 else root[p]
+    firsts = sorted(set(root.values()))
+    bodies = [[b for b in range(1, mc.nb) if root[b] == f] for f in firsts]
+    spheres = [[c for c, b in enumerate(mc.collision_body)
+                if b > 0 and root[b] == f] for f in firsts]
+    return bodies, spheres
+
+
 def model_header(mc: ModelConsts) -> str:
-    """pf_model.h for the kernels: sizes and constants of one robot."""
+    """pf_model.h for the kernels: sizes and constants of one robot, as
+    `constexpr` accessors pf_*(i) that fold into unrolled per-thread code
+    and as device arrays pfr_* for code whose lanes index them at run time,
+    with the tree cut into the branches below the base."""
     nb, nj, nc = mc.nb, mc.nj, mc.nc
+    br_bodies, br_spheres = branches(mc)
+    nbr = len(br_bodies)
+    maxbl = max(len(b) for b in br_bodies)
+    maxbs = max(1, max(len(s) for s in br_spheres))
+    maxd = max(1, max(len(a) for a in mc.ancestors))
+    flat9 = lambda mats: [[v for row in m for v in row] for m in mats]
     anc = [[_is_ancestor(mc, a, b) for b in range(nb)] for a in range(nb)]
     uses = [[j in mc.ancestors[c] for j in range(nj)] for c in range(nc)]
     parts = [
@@ -106,6 +142,31 @@ def model_header(mc: ModelConsts) -> str:
         _table("inertia", mc.inertia, [nb, 3, 3]),
         _table("coll_offset", mc.collision_offset, [nc, 3]),
         _table("coll_radius", mc.collision_radius, [nc]),
+        f"#define PF_NBR {nbr}\n#define PF_MAXBL {maxbl}\n"
+        f"#define PF_MAXBS {maxbs}\n#define PF_MAXD {maxd}\n",
+        _array("parent", list(mc.parent), [nb], "int"),
+        _array("br_len", [len(b) for b in br_bodies], [nbr], "int"),
+        _array("br_body", _padded(br_bodies, maxbl), [nbr, maxbl], "int"),
+        _array("br_nsph", [len(s) for s in br_spheres], [nbr], "int"),
+        _array("br_sphere", _padded(br_spheres, maxbs), [nbr, maxbs], "int"),
+        _array("coll_body", list(mc.collision_body), [nc], "int"),
+        _array("anc_count", [len(a) for a in mc.ancestors], [nc], "int"),
+        _array("anc_joint", _padded(mc.ancestors, maxd), [nc, maxd], "int"),
+        _array("joint_pos", mc.joint_pos, [nj, 3]),
+        _array("joint_rot", flat9(mc.joint_rot_mat), [nj, 9]),
+        _array("joint_axis", mc.joint_axis, [nj, 3]),
+        _array("q_lower", mc.q_lower, [nj]),
+        _array("q_upper", mc.q_upper, [nj]),
+        _array("q_lower_stop", [q - 0.2 for q in mc.q_lower], [nj]),
+        _array("q_upper_stop", [q + 0.2 for q in mc.q_upper], [nj]),
+        _array("velocity_limit", mc.velocity_limit, [nj]),
+        _array("effort_limit", mc.effort_limit, [nj]),
+        _array("joint_damping", mc.joint_damping, [nj]),
+        _array("mass", mc.mass, [nb]),
+        _array("com", mc.com, [nb, 3]),
+        _array("inertia", flat9(mc.inertia), [nb, 9]),
+        _array("coll_offset", mc.collision_offset, [nc, 3]),
+        _array("coll_radius", mc.collision_radius, [nc]),
     ]
     return "".join(parts)
 
@@ -188,6 +249,10 @@ class ModelLibrary(KernelLibrary):
         lib.pf_fk_from_state.restype = _I
         lib.pf_fk_contact_xy.argtypes = [_P, _P, _I, _P]
         lib.pf_fk_contact_xy.restype = _I
+        lib.pf_substep_smem_bytes.argtypes = []
+        lib.pf_substep_smem_bytes.restype = _I
+        lib.pf_substep_resident_warps.argtypes = [_I]
+        lib.pf_substep_resident_warps.restype = _I
 
 
 class CholeskyLibrary(KernelLibrary):
@@ -200,12 +265,16 @@ class CholeskyLibrary(KernelLibrary):
 
 
 class RiccatiLibrary(KernelLibrary):
-    """riccati.cu, with its C entry point typed."""
+    """riccati.cu, with its C entry points typed."""
 
     def __init__(self, path: str, build_seconds: float, log: str):
         super().__init__(path, build_seconds, log)
         self.lib.pf_srb_lqr.argtypes = [_P] * 10 + [_I, _I, _I, _P]
         self.lib.pf_srb_lqr.restype = _I
+        for fn in (self.lib.pf_srb_lqr_smem_bytes,
+                   self.lib.pf_srb_lqr_resident_warps):
+            fn.argtypes = [_I, _I, _I]
+            fn.restype = _I
 
 
 def model_spec(mc: ModelConsts) -> BuildSpec:

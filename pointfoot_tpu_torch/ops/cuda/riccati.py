@@ -3,15 +3,19 @@
 The SRB-MPC tick (mpc/srb.py) solves, per scenario, a time-invariant LQR
 over n = 12 states and m = 3·nf foot forces: a backward Riccati sweep with
 an m×m Cholesky and 13 solves per step, then the forward force rollout.
-csrc/riccati.cu does the whole solve in one kernel launch, one scenario per
-thread.  The batch is the minor axis: every matrix is staged (rows, B), F
-as (n·n, B) with F[i, j] in row i·n + j and L as (n·m, B) with L[i, a] in
-row i·m + a, so a warp's loads of one entry are adjacent.
+csrc/riccati.cu does the whole solve in one kernel launch: a group of 16
+lanes per scenario, eight scenarios a block, the working set of each in a
+slab of shared memory.  The batch is the minor axis: every matrix is staged
+(rows, B), F as (n·n, B) with F[i, j] in row i·n + j and L as (n·m, B) with
+L[i, a] in row i·m + a, so the eight scenarios of a block are 32 contiguous
+bytes of every row.
 
 `srb_lqr_lanes` is the kernel's wrapper: the kernel for CUDA tensors, the
 plain version (`srb_lqr_lanes_plain`) for CPU tensors.  It counts its
 launches in `.launches`; `srb_lqr` stages (B, ...) problems and launches
-through it.
+through it.  `smem_plan` sizes a block's shared memory and decides where
+the gains K_t, d_t of the backward sweep live: in the slabs when the block
+then fits in an SM's shared memory, else in a global work space.
 """
 
 from __future__ import annotations
@@ -25,6 +29,9 @@ N_STATE = 12
 # input sizes the kernel is instantiated for: PointFoot and Cassie (two
 # feet), the quadrupeds (four)
 SIZES = (6, 12)
+# the kernel's launch shape and shared-memory slab (csrc/riccati.cu, Slab)
+SCENARIOS_PER_BLOCK = 8
+MAX_BLOCK_SMEM = 232448  # bytes a block may use on an H100 (227 KB)
 _ARGS = ("F_t", "c_t", "L_t", "Xd_t", "Ud_t", "XTd_t", "x0_t", "fff_t")
 
 
@@ -93,6 +100,41 @@ def srb_lqr_lanes_plain(F_t, c_t, L_t, Xd_t, Ud_t, XTd_t, x0_t, fff_t,
     return torch.stack(out)
 
 
+def gain_rows(m: int) -> int:
+    """Floats of one step's gains in the kernel's layout: K's m rows padded
+    to 13, then d."""
+    return (N_STATE + 1) * m + m
+
+
+def slab_floats(m: int, horizon: int, gains_in_shared: bool) -> int:
+    """Floats between two scenarios' slabs in shared memory: F, L, c, Xd,
+    Ud, P and the two m-row matrices padded to 13 columns, F'P, three
+    vectors of 12 and, if asked, the gains of every step; rounded up to 16
+    mod 32 so that the two groups of a warp fall on different banks."""
+    n, pad = N_STATE, N_STATE + 1
+    fixed = n * n + n * m + 2 * n + m + n * pad + 2 * m * pad + n * n + 3 * n
+    floats = fixed + (horizon * gain_rows(m) if gains_in_shared else 0)
+    return (floats + 15) // 32 * 32 + 16
+
+
+def smem_plan(m: int, horizon: int):
+    """(bytes of dynamic shared memory a block needs, gains in shared
+    memory?) for input size m and that horizon.  The gains stay in shared
+    memory whenever the block then fits; raises for sizes the kernel does
+    not take."""
+    if m not in SIZES:
+        raise ValueError(f"srb_lqr_lanes: no kernel for m = {m} "
+                         f"(built for m in {SIZES})")
+    if horizon < 1:
+        raise ValueError(f"srb_lqr_lanes: horizon {horizon} < 1")
+    for shared in (True, False):
+        nbytes = 4 * SCENARIOS_PER_BLOCK * slab_floats(m, horizon, shared)
+        if nbytes <= MAX_BLOCK_SMEM:
+            return nbytes, shared
+    raise ValueError(f"srb_lqr_lanes: a block of m = {m} needs {nbytes} B of "
+                     f"shared memory, the card gives {MAX_BLOCK_SMEM}")
+
+
 def srb_lqr_lanes(F_t, c_t, L_t, Xd_t, Ud_t, XTd_t, x0_t, fff_t,
                   horizon: int) -> torch.Tensor:
     """Batch-minor entry: F_t (n·n, B), c_t (n, B), L_t (n·m, B), Xd_t,
@@ -116,18 +158,26 @@ def srb_lqr_lanes(F_t, c_t, L_t, Xd_t, Ud_t, XTd_t, x0_t, fff_t,
     if n != N_STATE or m not in SIZES:
         raise ValueError(f"srb_lqr_lanes: no kernel for n = {n}, m = {m} "
                          f"(built for n = {N_STATE}, m in {SIZES})")
-    if T < 1:
-        raise ValueError(f"srb_lqr_lanes: horizon {T} < 1")
+    nbytes, gains_in_shared = smem_plan(m, T)
     for name, t in zip(_ARGS, args):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"srb_lqr_lanes: {name} must be contiguous "
                              f"float32, got {t.dtype}"
                              f"{'' if t.is_contiguous() else ', strided'}")
-    # K_t and d_t of the backward sweep, read back by the forward rollout
-    gains = torch.empty((T, m * n + m, B), dtype=torch.float32, device=dev)
-    out = torch.empty((T, m, B), dtype=torch.float32, device=dev)
     lib = build.load_riccati()
-    err = lib.lib.pf_srb_lqr(*(t.data_ptr() for t in args), gains.data_ptr(),
+    if lib.lib.pf_srb_lqr_smem_bytes(m, T, int(gains_in_shared)) != nbytes:
+        raise RuntimeError("srb_lqr_kernel's shared-memory layout does not "
+                           "match smem_plan")
+    # K_t and d_t of the backward sweep, read back by the forward rollout:
+    # a work space for whole blocks when they do not fit in shared memory
+    gains = None
+    if not gains_in_shared:
+        padded = -(-B // SCENARIOS_PER_BLOCK) * SCENARIOS_PER_BLOCK
+        gains = torch.empty((padded, T, gain_rows(m)), dtype=torch.float32,
+                            device=dev)
+    out = torch.empty((T, m, B), dtype=torch.float32, device=dev)
+    err = lib.lib.pf_srb_lqr(*(t.data_ptr() for t in args),
+                             None if gains is None else gains.data_ptr(),
                              out.data_ptr(), m, T, B,
                              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

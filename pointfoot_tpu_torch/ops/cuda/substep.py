@@ -11,6 +11,10 @@ contiguous) inside:
   the sphere-xy FK that feeds its surface query, `fk_contact_xy`: the
   mega-kernel route of physics/dynamics.step_batched.
 
+The two substep kernels give each env a group of four lanes and a slab of
+shared memory for its working set (csrc/rowdyn.cuh, substep_group), eight
+envs a one-warp block; the two FK kernels run one env per thread.
+
 Four wrappers launch the kernels of csrc/substep.cu for CUDA tensors:
 `rollout_step` (one rollout substep), `fk_rows` (collision-sphere xyz),
 `step_rows` (one substep) and `fk_xy_rows` (collision-sphere xy).  For CPU

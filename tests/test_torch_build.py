@@ -92,3 +92,82 @@ def test_every_csrc_file_is_packaged():
     assert "rowdyn.cuh" in files and "riccati.cu" in files
     for name in files:
         assert any(fnmatch.fnmatch(f"csrc/{name}", p) for p in patterns), name
+
+
+# ------------------------------------- run-time tables of the lane groups
+
+def _array(header: str, name: str):
+    """Device array pfr_<name> of the header as nested python lists, its
+    value count checked against its declared shape."""
+    m = re.search(rf"pfr_{name}((?:\[\d+\])+) = (.*);\n", header)
+    assert m, name
+    dims = [int(d) for d in re.findall(r"\d+", m.group(1))]
+    text = m.group(2).replace("{", "[").replace("}", "]")
+    values = ast.literal_eval(re.sub(r"(?<=[\d.])f\b", "", text))
+    assert np.asarray(values).shape == tuple(dims), name
+    return values
+
+
+@pytest.mark.parametrize("robot, nbr, maxbl, maxd", [
+    ("pointfoot", 2, 3, 3), ("anymal_c", 4, 3, 3), ("a1", 4, 3, 3)])
+def test_branch_tables_match_the_model(robot, nbr, maxbl, maxd):
+    """The branches below the base partition the bodies, each in an order
+    that puts parents first; the spheres of a branch are those on its
+    bodies; every sphere's ancestor joints lie in its own branch."""
+    mc = sp.model_consts(get_model(robot))
+    h = build.model_header(mc)
+    for name, v in (("NBR", nbr), ("MAXBL", maxbl), ("MAXD", maxd)):
+        assert f"#define PF_{name} {v}\n" in h
+    lens, bodies = _array(h, "br_len"), _array(h, "br_body")
+    nsph, spheres = _array(h, "br_nsph"), _array(h, "br_sphere")
+    assert _array(h, "parent") == list(mc.parent)
+    assert _array(h, "coll_body") == list(mc.collision_body)
+    seen = []
+    for br in range(nbr):
+        mine = bodies[br][:lens[br]]
+        assert mine == sorted(mine) and mc.parent[mine[0]] == 0
+        for b in mine[1:]:
+            assert mc.parent[b] in mine and mc.parent[b] < b
+        seen += mine
+        own = spheres[br][:nsph[br]]
+        assert own == [c for c, b in enumerate(mc.collision_body)
+                       if b in mine]
+        for c in own:
+            assert all(j + 1 in mine for j in mc.ancestors[c])
+    assert sorted(seen) == list(range(1, mc.nb))
+    firsts = [bodies[br][0] for br in range(nbr)]
+    assert firsts == sorted(firsts)  # the base folds them last body first
+    counts, joints = _array(h, "anc_count"), _array(h, "anc_joint")
+    for c in range(mc.nc):
+        assert tuple(joints[c][:counts[c]]) == mc.ancestors[c]
+        assert list(mc.ancestors[c]) == sorted(mc.ancestors[c])
+
+
+@pytest.mark.parametrize("robot", ["pointfoot", "anymal_c", "a1"])
+def test_run_time_arrays_repeat_the_constexpr_tables(robot):
+    """pfr_<name> (indexed by the lanes at run time) holds the values of
+    pf_<name>(i) (folded into the per-thread FK kernels)."""
+    mc = sp.model_consts(get_model(robot))
+    h = build.model_header(mc)
+    for name in ("joint_pos", "joint_rot", "joint_axis", "q_lower",
+                 "q_upper", "q_lower_stop", "q_upper_stop", "velocity_limit",
+                 "effort_limit", "joint_damping", "mass", "com", "inertia",
+                 "coll_offset", "coll_radius"):
+        m = re.search(rf"pf_{name}\([^)]*\) {{\n  constexpr \w+ t(?:\[\d+\])+"
+                      r" = (.*);\n", h)
+        table = ast.literal_eval(re.sub(
+            r"(?<=[\d.])f\b", "",
+            m.group(1).replace("{", "[").replace("}", "]")))
+        np.testing.assert_array_equal(
+            np.asarray(table, np.float64).ravel(),
+            np.asarray(_array(h, name), np.float64).ravel(), err_msg=name)
+
+
+def test_substep_sources_use_a_lane_group_and_shared_memory():
+    with open(os.path.join(build.CSRC, "substep.cu")) as f:
+        src = f.read()
+    with open(os.path.join(build.CSRC, "rowdyn.cuh")) as f:
+        body = f.read()
+    assert "extern __shared__ float smem[]" in src
+    assert "substep_group(" in src and "__syncwarp()" in body
+    assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor" in src

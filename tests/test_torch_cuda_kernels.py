@@ -18,8 +18,17 @@ from _torch_parity import srb_lqr_problem
 
 pytestmark = pytest.mark.cuda
 
-# not a multiple of the 128-thread block: the last block has idle threads
+# 1000 envs or scenarios fill their blocks (8 items each); the ragged sizes
+# leave the last block with idle groups: one item, and a prime above 4096
 B = 1000
+RAGGED = (1, 4099)
+
+
+def _columns(t, num):
+    """The first `num` columns of (rows, B) tensor t, starting over beyond
+    B."""
+    reps = -(-num // t.shape[1])
+    return torch.cat([t] * reps, dim=1)[:, :num].contiguous()
 
 
 @pytest.fixture(scope="module")
@@ -65,6 +74,27 @@ def test_rollout_step_kernel_matches_plain(rows, control_type, surface,
     assert sp.rollout_step.launches == before + 1
     ps, pe = sp.rollout_step_plain(*args)
     torch.cuda.synchronize()
+    nj, nc = mc.nj, mc.nc
+    torch.testing.assert_close(ks, ps, atol=2e-3, rtol=0)
+    torch.testing.assert_close(ke[:nj], pe[:nj], atol=5e-3, rtol=0)
+    torch.testing.assert_close(ke[nj:nj + 3 * nc], pe[nj:nj + 3 * nc],
+                               atol=0.05, rtol=1e-3)
+    torch.testing.assert_close(ke[nj + 3 * nc:], pe[nj + 3 * nc:],
+                               atol=5e-5, rtol=0)
+
+
+@pytest.mark.parametrize("num", RAGGED)
+def test_rollout_step_kernel_matches_plain_on_ragged_batches(rows, num):
+    mc, parts = rows
+    state, ctrl, surf = (_columns(t, num) for t in parts)
+    args = (mc, state, ctrl, surf, True, (0.1, 0.0, -0.1, 0.0, 0.2, 0.0),
+            0.5, "P", 0.005, 9.81)
+    ks, ke = sp.rollout_step(*args)
+    again = sp.rollout_step(*args)
+    ps, pe = sp.rollout_step_plain(*args)
+    torch.cuda.synchronize()
+    assert ks.shape == ps.shape and ke.shape == pe.shape
+    assert torch.equal(ks, again[0]) and torch.equal(ke, again[1])
     nj, nc = mc.nj, mc.nc
     torch.testing.assert_close(ks, ps, atol=2e-3, rtol=0)
     torch.testing.assert_close(ke[:nj], pe[:nj], atol=5e-3, rtol=0)
@@ -147,6 +177,36 @@ def test_substep_kernel_matches_plain(substep_rows, surface):
                                rtol=1e-3)
 
 
+@pytest.mark.parametrize("num", RAGGED)
+def test_substep_kernel_matches_plain_on_ragged_batches(substep_rows, num):
+    mc, parts = substep_rows
+    rows, surf = (_columns(t, num) for t in parts)
+    got = sp.step_rows(mc, rows, surf, 0.005, 9.81)
+    again = sp.step_rows(mc, rows, surf, 0.005, 9.81)
+    want = sp.step_rows_plain(mc, rows, surf, 0.005, 9.81)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.equal(got, again)
+    o_qvel, o_force = 13 + mc.nj, 13 + 2 * mc.nj
+    torch.testing.assert_close(got[:7], want[:7], atol=2e-5, rtol=0)
+    torch.testing.assert_close(got[7:13], want[7:13], atol=3e-4, rtol=3e-4)
+    torch.testing.assert_close(got[13:o_qvel], want[13:o_qvel], atol=2e-5,
+                               rtol=0)
+    torch.testing.assert_close(got[o_qvel:o_force], want[o_qvel:o_force],
+                               atol=1e-3, rtol=3e-4)
+    torch.testing.assert_close(got[o_force:], want[o_force:], atol=0.1,
+                               rtol=1e-3)
+
+
+def test_substep_kernels_fit_an_sm(substep_rows):
+    """The block's slabs fit in shared memory, and an SM holds a warp."""
+    from pointfoot_tpu_torch.ops.cuda import build
+
+    lib = build.load(substep_rows[0])
+    assert 0 < lib.lib.pf_substep_smem_bytes() <= 232448
+    assert lib.lib.pf_substep_resident_warps(0) >= 1
+    assert lib.lib.pf_substep_resident_warps(1) >= 1
+
+
 def test_fk_xy_kernel_matches_plain(substep_rows):
     mc, (rows, _) = substep_rows
     fk_in = torch.cat([rows[:7], rows[13:13 + mc.nj]]).contiguous()
@@ -188,11 +248,11 @@ def test_cholesky_kernel_matches_plain(n):
 
 # ------------------------------------------------- the SRB-LQR kernel
 
-@pytest.mark.parametrize("num", [B, 4096])
+@pytest.mark.parametrize("num", [B, 4096, *RAGGED])
 @pytest.mark.parametrize("m", [6, 12])
 def test_srb_lqr_kernel_matches_plain(m, num):
-    """Tolerance of tests/test_pallas.py:77-78; 1000 scenarios leave the
-    last block with idle threads."""
+    """Tolerance of tests/test_pallas.py:77-78; 1 and 4099 scenarios leave
+    the last block with idle groups."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from pointfoot_tpu_torch.ops.cuda import riccati
@@ -213,6 +273,32 @@ def test_srb_lqr_kernel_matches_plain(m, num):
     assert out.shape == (num, T, m)
     cpu = riccati.srb_lqr(*(a.cpu() for a in prob), horizon=T)
     torch.testing.assert_close(out.cpu(), cpu, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("T, shared", [(1, True), (12, True), (96, False)])
+@pytest.mark.parametrize("m", [6, 12])
+def test_srb_lqr_kernel_in_both_homes_of_the_gains(m, T, shared):
+    """The gains stay in shared memory at horizons 1 and 12 and go to the
+    global work space at 96; the kernel matches its plain version in both,
+    and two launches agree bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pointfoot_tpu_torch.ops.cuda import build, riccati
+
+    nbytes, in_shared = riccati.smem_plan(m, T)
+    assert in_shared == shared
+    lib = build.load_riccati().lib
+    assert lib.pf_srb_lqr_smem_bytes(m, T, int(shared)) == nbytes
+    assert lib.pf_srb_lqr_resident_warps(m, T, int(shared)) >= 4
+    dev = torch.device("cuda")
+    staged = riccati.stage(*(torch.tensor(a, device=dev)
+                             for a in srb_lqr_problem(B + 3, m, m + T)))
+    got = riccati.srb_lqr_lanes(*staged, T)
+    again = riccati.srb_lqr_lanes(*staged, T)
+    want = riccati.srb_lqr_lanes_plain(*staged, T)
+    torch.cuda.synchronize()
+    assert got.shape == (T, m, B + 3) and torch.equal(got, again)
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
 
 
 def test_srb_lqr_wrapper_rejects_what_the_kernel_does_not_take():

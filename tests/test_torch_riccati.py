@@ -293,3 +293,57 @@ def test_associative_scan_is_an_inclusive_scan(n):
         acc = M[i] @ acc
         want.append(acc)
     torch.testing.assert_close(got_M, torch.stack(want))
+
+
+# ------------------------- the kernel's shared-memory plan (plain python)
+
+MAX_SMEM = 232448  # bytes a block may use on an H100
+
+
+@pytest.mark.parametrize("m", [6, 12])
+@pytest.mark.parametrize("T", [1, 12])
+def test_smem_plan_keeps_the_gains_in_shared_memory_when_they_fit(m, T):
+    nbytes, shared = rk.smem_plan(m, T)
+    assert shared and nbytes <= MAX_SMEM
+    assert nbytes == 4 * rk.SCENARIOS_PER_BLOCK * rk.slab_floats(m, T, True)
+    # the slab holds its fixed part and T steps of gains
+    assert rk.slab_floats(m, T, True) >= \
+        rk.slab_floats(m, T, False) - 32 + T * rk.gain_rows(m)
+
+
+@pytest.mark.parametrize("m", [6, 12])
+def test_slab_stride_separates_the_two_groups_of_a_warp(m):
+    """16 mod 32 floats: one address per group, or 16 neighbouring ones,
+    fall on different banks for the two scenarios of a warp."""
+    for T in range(1, 100):
+        for shared in (True, False):
+            assert rk.slab_floats(m, T, shared) % 32 == 16
+    # one more step never shrinks the slab
+    sizes = [rk.slab_floats(m, T, True) for T in range(1, 100)]
+    assert sizes == sorted(sizes)
+
+
+@pytest.mark.parametrize("m, T", [(6, 96), (12, 96), (6, 1000), (12, 38)])
+def test_smem_plan_sends_a_long_horizon_to_the_global_work_space(m, T):
+    nbytes, shared = rk.smem_plan(m, T)
+    assert not shared
+    assert 4 * rk.SCENARIOS_PER_BLOCK * rk.slab_floats(m, T, True) > MAX_SMEM
+    # without the gains the block's size does not depend on the horizon
+    assert nbytes == rk.smem_plan(m, 10 * T)[0] <= MAX_SMEM
+
+
+@pytest.mark.parametrize("m, T", [(6, 77), (12, 37)])
+def test_smem_plan_longest_horizon_in_shared_memory(m, T):
+    assert rk.smem_plan(m, T)[1] and not rk.smem_plan(m, T + 1)[1]
+
+
+@pytest.mark.parametrize("m, T, match", [
+    (9, 12, "no kernel for m = 9"), (3, 12, "no kernel for m = 3"),
+    (6, 0, "horizon 0 < 1"), (12, -2, "horizon -2 < 1")])
+def test_smem_plan_rejects_sizes_the_kernel_does_not_take(m, T, match):
+    with pytest.raises(ValueError, match=match):
+        rk.smem_plan(m, T)
+
+
+def test_gain_rows_pad_k_to_thirteen_columns():
+    assert rk.gain_rows(6) == 6 * 13 + 6 and rk.gain_rows(12) == 12 * 13 + 12
