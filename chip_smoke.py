@@ -20,11 +20,12 @@ scenarios (the fused SRB-LQR kernel).
 3. step_batched's kernels against their plain versions on an anymal_c_rough
    state reached after 20 steps of the bench action signal, with a push
    queued: the mega-kernel route (sphere-xy FK, surface query, substep
-   kernel) against the plain path, the substep kernel against its twin at
-   4096, 1000, 1 and 4099 envs and two launches bit for bit, the FK-xy
-   kernel against its twin, and
-   the Cholesky kernel against ops/linalg.chol_solve on the velocity
-   systems of 2048 ANYmal and 2048 PointFoot envs;
+   kernel) against the plain path, the substep kernel and the FK-xy
+   kernel against their twins at 4096, 1000, 1 and 4099 envs and two
+   launches bit for bit, and the Cholesky kernel bit for bit against
+   ops/linalg.chol_solve on the velocity systems of 2048 ANYmal (n = 18)
+   and 2048 PointFoot (n = 12) envs, at 1000, 1 and 4099 of them as well,
+   and two launches bit for bit;
    for every kernel: per-launch time of the kernel (its launches replayed
    from a CUDA graph, so the device's time; and a loop of wrapper calls,
    which cannot show less than the host's time to enqueue one) and of the
@@ -41,7 +42,9 @@ scenarios (the fused SRB-LQR kernel).
    a per-layer breakdown, and the physical gate (level 0, zero actions, no
    pushes, 2 s) inside the band the JAX package gives;
 6. anymal_c_rough at 2048 envs, the Cholesky route: 25 steps, Cholesky
-   kernel 4x the step count, substep kernel 0;
+   kernel 4x the step count, substep kernel 0, and one substep split into
+   its layers (assemble_velocity_solve, staging, the Cholesky kernel,
+   finish_step);
 7. the SRB-LQR kernel against its plain version at 4096, 1000, 1 and 4099
    scenarios, on the PointFoot tick's own problems (m = 6), A1's (m = 12)
    and random dense problems, horizon 12; at horizon 1 and at a horizon
@@ -112,7 +115,6 @@ STEP_TOL = {"base_lin_vel": (3e-4, 3e-4), "base_ang_vel": (3e-4, 3e-4),
             "qvel": (1e-3, 3e-4), "base_pos": (2e-5, 0.0),
             "base_quat": (2e-5, 0.0), "qpos": (2e-5, 0.0),
             "contact_force": (0.1, 1e-3)}
-CHOL_TOL = 3e-3  # rtol and atol, tests/test_pallas.py:24
 ANYMAL_PATCH = dict(terrain=dict(procedural=True))
 # The physical gate: anymal_c_rough on level 0 of procedural terrain
 # without the discrete-obstacle family, zero actions, no pushes, 2 s.  The
@@ -298,6 +300,20 @@ def build_kernels(mc_pf, mc_any, mc_a1):
         if min(warps) < 1:
             raise AssertionError(f"{what}: a substep kernel does not fit an "
                                  f"SM: resident warps {warps}")
+    fk_warps = libs[1].lib.pf_fk_xy_resident_warps()
+    log(f"[kernels] ANYmal fk_contact_xy_kernel: 32 envs a block, a warp a "
+        f"leg, resident warps an SM {fk_warps}")
+    if fk_warps < 1:
+        raise AssertionError("fk_contact_xy_kernel does not fit an SM")
+    for n in ch.SIZES:
+        chol_lib = libs[3].lib
+        warps = chol_lib.pf_chol_resident_warps(n)
+        log(f"[kernels] chol_solve_kernel<{n}>: {chol_lib.pf_chol_lanes(n)} "
+            f"lanes a system, 16 systems a block, "
+            f"{chol_lib.pf_chol_smem_bytes(n)} B of dynamic shared memory a "
+            f"block, resident warps an SM {warps}")
+        if warps < 1:
+            raise AssertionError(f"chol_solve_kernel<{n}> does not fit an SM")
     for m in rk.SIZES:
         for horizon in (1, 12, LQR_LONG_HORIZON):
             nbytes, shared = rk.smem_plan(m, horizon)
@@ -477,17 +493,17 @@ def velocity_system(env, phys, params, tau):
 
 
 def check_cholesky(A_t, b_t, what):
+    """The kernel does the plain version's operations in its order, so the
+    two agree bit for bit."""
     x_k = ch.chol_solve_lanes(A_t, b_t)
     x_p = ch.chol_solve_lanes_plain(A_t, b_t)
     torch.cuda.synchronize()
-    err = (x_k - x_p).abs()
-    share = float((err / (CHOL_TOL + CHOL_TOL * x_p.abs())).max())
-    if not share <= 1.0:
-        raise AssertionError(f"chol_solve {what}: max |err| "
-                             f"{float(err.max())} beyond rtol/atol {CHOL_TOL}")
-    log(f"[kernels] chol_solve {what}: max |err| {float(err.max()):.3g} "
-        f"({100 * share:.2g}% of the tolerance)")
-    return float(err.max())
+    err = max_err(x_k, x_p)
+    if not torch.equal(x_k, x_p):
+        raise AssertionError(f"chol_solve {what}: not bit-identical to the "
+                             f"plain version, max |err| {err}")
+    log(f"[kernels] chol_solve {what}: bit-identical to the plain version")
+    return err
 
 
 def check_step_rows(mc, in_rows, surf_rows, dt, grav):
@@ -586,12 +602,19 @@ def anymal_kernels(env, mc, pf_env, pf_state):
     check_same_bits("substep", lambda: sp.step_rows(mc, in_rows, surf_rows,
                                                     dt, grav))
     fk_in = sp.pack_fk_in(phys)
-    xy_k = sp.fk_xy_rows(mc, fk_in)
-    xy_p = sp.fk_xy_rows_plain(mc, fk_in)
-    torch.cuda.synchronize()
-    xy_err = max_err(xy_k, xy_p)
-    if not xy_err <= FK_TOL:
-        raise AssertionError(f"fk_contact_xy: max |err| {xy_err} > {FK_TOL}")
+    xy_err = 0.0
+    for num in (NUM_ENVS,) + RAGGED:
+        part = ragged_columns((fk_in,), num)[0]
+        xy_k = sp.fk_xy_rows(mc, part)
+        xy_p = sp.fk_xy_rows_plain(mc, part)
+        torch.cuda.synchronize()
+        err = max_err(xy_k, xy_p)
+        if xy_k.shape != xy_p.shape or not err <= FK_TOL:
+            raise AssertionError(f"fk_contact_xy B={num}: max |err| {err} > "
+                                 f"{FK_TOL}")
+        log(f"[kernels] fk_contact_xy B={num}: max |err| {err:.3g}")
+        xy_err = max(xy_err, err)
+    check_same_bits("fk_contact_xy", lambda: sp.fk_xy_rows(mc, fk_in))
     nj, nc = mc.nj, mc.nc
     log(f"[kernels] substep kernel vs plain twin, max |err| {sub_err:.3g} "
         f"(state rows {sub_state_err:.3g}); "
@@ -610,19 +633,26 @@ def anymal_kernels(env, mc, pf_env, pf_state):
         err=xy_err, **kernel_ms(lambda: sp.fk_xy_rows(mc, fk_in)),
         plain_ms=cuda_ms(lambda: sp.fk_xy_rows_plain(mc, fk_in), 5,
                          warmup=1),
-        nbytes=4 * NUM_ENVS * (7 + nj + 2 * nc),
+        # base_pos x, y, base_quat and qpos in (base_pos z does not move a
+        # sphere's xy), 2·nc rows out
+        nbytes=4 * NUM_ENVS * (6 + nj + 2 * nc),
         ops=count_ops(lambda: sp.fk_xy_rows_plain(mc, fk_in)))
 
     # the Cholesky kernel on the velocity systems of 2048 envs of each robot
     n = CHOL_ENVS
     A_t, b_t = velocity_system(env, slice_batch(phys, n),
                                slice_batch(params, n), tau[:n])
-    chol_err = check_cholesky(A_t, b_t, f"ANYmal n=18 B={n}")
     pf_A, pf_b = velocity_system(
         pf_env, slice_batch(pf_state.physics, n),
         slice_batch(pf_state.params, n), pf_state.torques[:n])
-    chol_err = max(chol_err,
-                   check_cholesky(pf_A, pf_b, f"PointFoot n=12 B={n}"))
+    chol_err = 0.0
+    for At, bt, what in ((A_t, b_t, "ANYmal n=18"),
+                         (pf_A, pf_b, "PointFoot n=12")):
+        for num in (n,) + RAGGED:
+            chol_err = max(chol_err, check_cholesky(
+                *ragged_columns((At, bt), num), f"{what} B={num}"))
+        check_same_bits(f"chol_solve {what}",
+                        lambda: ch.chol_solve_lanes(At, bt))
     nv = 18
     A = A_t.t().reshape(n, nv, nv).contiguous()
     b = b_t.t().contiguous()
@@ -634,12 +664,14 @@ def anymal_kernels(env, mc, pf_env, pf_state):
         err=chol_err, **kernel_ms(lambda: ch.chol_solve_lanes(A_t, b_t)),
         plain_ms=cuda_ms(lambda: ch.chol_solve_lanes_plain(A_t, b_t), 5,
                          warmup=1),
-        nbytes=4 * n * (nv * nv + 2 * nv),
+        # A's lower triangle (all that the factor reads) and b in, x out
+        nbytes=4 * n * (nv * (nv + 1) // 2 + 2 * nv),
         ops=count_ops(lambda: ch.chol_solve_lanes_plain(A_t, b_t)),
         library_ms=cuda_ms(library, 50))
-    pf_ms = cuda_ms(lambda: ch.chol_solve_lanes(pf_A, pf_b), 200)
-    log(f"[kernels] chol_solve at PointFoot n=12 B={n}: {pf_ms:.4f} "
-        f"ms/launch")
+    pf_ms = kernel_ms(lambda: ch.chol_solve_lanes(pf_A, pf_b))
+    log(f"[kernels] chol_solve at PointFoot n=12 B={n}: {pf_ms['ms']:.4f} "
+        f"ms/launch on the device, {pf_ms['wrapper_ms']:.4f} in a loop of "
+        f"wrapper calls")
     layers_in = dict(state=state, signal=signal, xy=xy, tau=tau, push=push)
     return sub, fkxy, chol, layers_in
 
@@ -793,6 +825,52 @@ def cholesky_route():
         f"envs in {wall:.2f} s: {CHOL_STEPS * CHOL_ENVS / wall:.0f} "
         f"env-steps/s, {wall / CHOL_STEPS * 1e3:.2f} ms/step, launches "
         f"{launches}")
+
+    # one substep of step_batched's Cholesky route, by layer (CUDA events,
+    # same state)
+    phys, params = state.physics, state.params
+    c, dt, grav = env.cfg.control, env.cfg.sim.dt, env.cfg.sim.gravity
+    a = signal(0)
+    pos_err = a * c.action_scale + env.default_qpos - phys.qpos
+    tau, _ = act.actuator_net_torque(env.actuator_weights,
+                                     state.actuator_carry, pos_err,
+                                     phys.qvel)
+    tau = torch.clamp(tau, -env.torque_limit, env.torque_limit)
+    ext = torch.zeros_like(phys.base_pos)
+
+    def assemble():
+        return dynamics.assemble_velocity_solve(
+            env.model, params, phys, tau, env.height_fn, dt, ext, None, grav)
+
+    A, rhs, terms = assemble()
+    nv = rhs.shape[1]
+
+    def stage():
+        return (A.reshape(CHOL_ENVS, nv * nv).t().contiguous(),
+                rhs.t().contiguous())
+
+    A_t, b_t = stage()
+    u_new = ch.chol_solve_lanes(A_t, b_t).t()
+    kernel = kernel_ms(lambda: ch.chol_solve_lanes(A_t, b_t))
+    layers = {
+        "env.step": cuda_ms(lambda: env.step(state, a), 5),
+        "step_batched (one substep)": cuda_ms(
+            lambda: dynamics.step_batched(env.model, params, phys, tau,
+                                          env.height_fn, dt, gravity=grav),
+            10),
+        "assemble_velocity_solve": cuda_ms(assemble, 10),
+        "staging A, b to (rows, B)": cuda_ms(stage, 20),
+        "Cholesky kernel (device)": kernel["ms"],
+        "Cholesky kernel (wrapper loop)": kernel["wrapper_ms"],
+        "finish_step": cuda_ms(
+            lambda: dynamics.finish_step(env.model, phys, u_new, terms, dt),
+            10),
+    }
+    share = layers["Cholesky kernel (device)"] / \
+        layers["step_batched (one substep)"]
+    log("[layers] anymal_c_rough 2048 envs, Cholesky route ms: " + json.dumps(
+        {k: round(v, 4) for k, v in layers.items()})
+        + f"; the kernel is {100 * share:.3g}% of a substep")
     return launches
 
 

@@ -36,7 +36,7 @@
 //   - sensors by sphere, integration by joint.
 // The lanes of a group run the same instructions on different bodies, so
 // the model's constants are device arrays pfr_* indexed at run time; the
-// two FK kernels keep the per-thread forward_kinematics below, whose
+// two FK kernels run fk_child below a thread a body at a time, whose
 // constexpr accessors pf_*(i) fold into immediates.  Every constant is
 // float: a double would silently promote the arithmetic and change both
 // the result and the speed.  Slabs are 4 mod 32 floats apart and A's rows
@@ -104,59 +104,57 @@ __device__ __forceinline__ void quat_to_mat(const float q[4], float R[3][3]) {
   R[2][2] = 1.0f - 2.0f * (xx + yy);
 }
 
-// Body rotations and positions relative to the base origin; world joint
-// axes when axis_w is given.
-__device__ __forceinline__ void forward_kinematics(
-    const float quat[4], const float qpos[NJ], float R[NB][3][3],
-    float pos[NB][3], float (*axis_w)[3]) {
+// Body b's rotation and position relative to the base origin, from its
+// parent's and its joint angle qj.
+__device__ __forceinline__ void fk_child(int b, float qj, float R[NB][3][3],
+                                         float pos[NB][3]) {
+  const int j = b - 1;
+  const int p = pf_parent(b);
+  float frame0[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    pos[b][i] = pos[p][i] + (R[p][i][0] * pf_joint_pos(j, 0) +
+                             R[p][i][1] * pf_joint_pos(j, 1) +
+                             R[p][i][2] * pf_joint_pos(j, 2));
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      frame0[i][k] = R[p][i][0] * pf_joint_rot(j, 0, k) +
+                     R[p][i][1] * pf_joint_rot(j, 1, k) +
+                     R[p][i][2] * pf_joint_rot(j, 2, k);
+  }
+  // Rodrigues about the constant joint axis: I + sin q K + (1 - cos q) K²
+  const float ax = pf_joint_axis(j, 0), ay = pf_joint_axis(j, 1),
+              az = pf_joint_axis(j, 2);
+  const float K[3][3] = {{0.0f, -az, ay}, {az, 0.0f, -ax}, {-ay, ax, 0.0f}};
+  float s, c;
+  sincosf(qj, &s, &c);
+  const float one_c = 1.0f - c;
+  float Rj[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float kk = K[i][0] * K[0][k] + K[i][1] * K[1][k] +
+                       K[i][2] * K[2][k];
+      Rj[i][k] = s * K[i][k] + one_c * kk + (i == k ? 1.0f : 0.0f);
+    }
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      R[b][i][k] = frame0[i][0] * Rj[0][k] + frame0[i][1] * Rj[1][k] +
+                   frame0[i][2] * Rj[2][k];
+}
+
+// Body rotations and positions relative to the base origin.
+__device__ __forceinline__ void forward_kinematics(const float quat[4],
+                                                   const float qpos[NJ],
+                                                   float R[NB][3][3],
+                                                   float pos[NB][3]) {
   quat_to_mat(quat, R[0]);
   pos[0][0] = pos[0][1] = pos[0][2] = 0.0f;
 #pragma unroll
-  for (int b = 1; b < NB; ++b) {
-    const int j = b - 1;
-    const int p = pf_parent(b);
-    float frame0[3][3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      pos[b][i] = pos[p][i] + (R[p][i][0] * pf_joint_pos(j, 0) +
-                               R[p][i][1] * pf_joint_pos(j, 1) +
-                               R[p][i][2] * pf_joint_pos(j, 2));
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-        frame0[i][k] = R[p][i][0] * pf_joint_rot(j, 0, k) +
-                       R[p][i][1] * pf_joint_rot(j, 1, k) +
-                       R[p][i][2] * pf_joint_rot(j, 2, k);
-    }
-    if (axis_w != nullptr) {
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-        axis_w[j][i] = frame0[i][0] * pf_joint_axis(j, 0) +
-                       frame0[i][1] * pf_joint_axis(j, 1) +
-                       frame0[i][2] * pf_joint_axis(j, 2);
-    }
-    // Rodrigues about the constant joint axis: I + sin q K + (1 - cos q) K²
-    const float ax = pf_joint_axis(j, 0), ay = pf_joint_axis(j, 1),
-                az = pf_joint_axis(j, 2);
-    const float K[3][3] = {{0.0f, -az, ay}, {az, 0.0f, -ax}, {-ay, ax, 0.0f}};
-    float s, c;
-    sincosf(qpos[j], &s, &c);
-    const float one_c = 1.0f - c;
-    float Rj[3][3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float kk = K[i][0] * K[0][k] + K[i][1] * K[1][k] +
-                         K[i][2] * K[2][k];
-        Rj[i][k] = s * K[i][k] + one_c * kk + (i == k ? 1.0f : 0.0f);
-      }
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-        R[b][i][k] = frame0[i][0] * Rj[0][k] + frame0[i][1] * Rj[1][k] +
-                     frame0[i][2] * Rj[2][k];
-  }
+  for (int b = 1; b < NB; ++b) fk_child(b, qpos[b - 1], R, pos);
 }
 
 // Sphere c relative to the base origin.

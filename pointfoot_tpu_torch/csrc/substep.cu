@@ -7,7 +7,7 @@
 //   fk_contact_xy_kernel   <- _fk_kernel             (substep.py:201)
 // Plain PyTorch versions: physics/rowdyn.py, driven row by row from
 // ops/cuda/substep.py (rollout_step_plain, fk_rows_plain, step_rows_plain,
-// fk_xy_rows_plain).  The substep itself is rowdyn.cuh's substep_body.
+// fk_xy_rows_plain).  The substep itself is rowdyn.cuh's substep_group.
 //
 // Design.  Tensors are rows x envs (SoA, each row B contiguous floats).
 // The two substep kernels give each env a group of four lanes and a slab
@@ -23,14 +23,27 @@
 //   - substep_kernel: the substep with torque, base force and surface rows
 //     as inputs; the force applies on every call (step_batched passes the
 //     push on substep 0 only);
-//   - fk_from_state_kernel / fk_contact_xy_kernel: sphere xyz / xy, one
-//     thread per env, straight-line code with the model folded in.
+//   - fk_contact_xy_kernel: sphere xy, a thread a leg: 32 envs a block,
+//     warp w of the block walks branch w (a leg) of each env and places the
+//     leg's spheres, straight-line code with the model folded in.  The
+//     branch is the same across a warp, so no lanes diverge.  At 4096
+//     ANYmal envs (H100 80GB HBM3, 700 W, CUDA graph replay): 0.0028 ms
+//     against 0.0033 one env a thread; a launch alone takes 0.0010, the
+//     one-env-a-thread kernel with the FK taken out 0.0014.  Four lanes of
+//     a warp an env, a lane a leg on the run-time tables pfr_* with the
+//     frames in a slab, took 0.0045-0.0048: the tables' loads and the
+//     slab's round trips cost more than the lanes gained;
+//   - fk_from_state_kernel: sphere xyz, one thread per env, straight-line
+//     code with the model folded in.
 //
 // Bound.  PointFoot's rollout substep moves (31 + 42 + 36 + 31 + 60) * 4 B
 // = 800 B per env and ANYmal's substep (83 + 52 + 76) * 4 B = 844 B: at
 // 4096 envs about 3.3-3.5 MB, 1 us of HBM time at 3.35 TB/s, and about as
 // much at the float32 peak.  The kernels are bound by latency, not by
 // either: see rowdyn.cuh for what the group-of-lanes design does about it.
+// The sphere-xy FK moves (19 + 26) * 4 B = 180 B an ANYmal env, 0.22 us of
+// HBM time at 4096 envs: a launch and one round trip to memory set its
+// time.
 
 #include "rowdyn.cuh"
 
@@ -67,7 +80,7 @@ constexpr int O_FORCE = S_QVEL + NJ, R_SUB_OUT = O_FORCE + 3 * NC;
 // FK input rows: base_pos 3, base_quat 4, qpos
 constexpr int K_POS = 0, K_QUAT = 3, K_QPOS = 7, R_FK_IN = K_QPOS + NJ;
 
-constexpr int THREADS = 128;  // the per-thread FK kernels
+constexpr int THREADS = 128;  // the per-thread FK kernel
 constexpr int SUB_THREADS = LANES * ENVS_PER_BLOCK;  // the substep kernels
 constexpr int SUB_SMEM = ENVS_PER_BLOCK * slab::STRIDE * 4;  // bytes a block
 // rows a warp sweeps in one pass
@@ -82,6 +95,9 @@ static_assert(slab::I_SURF == R_SUB_IN && slab::I_TAU == S_LQVEL &&
               "slab layout and row layout differ");
 static_assert(slab::A - slab::SPH >= R_CTRL, "no room to stage the controls");
 static_assert(SUB_SMEM <= 232448, "a block's slabs exceed shared memory");
+
+// The xy FK kernel: a warp a branch below the base, 32 envs a block
+constexpr int FK_THREADS = 32 * PF_NBR;
 
 // nrows rows of column es into dst, a row every SWEEP lanes
 __device__ __forceinline__ void sweep_in(const float* __restrict__ rows,
@@ -114,7 +130,7 @@ __device__ __forceinline__ void sphere_world(const float base_pos[3],
                                              const float qpos[NJ],
                                              float xyz[NC][3]) {
   float R[NB][3][3], pos[NB][3];
-  forward_kinematics(quat, qpos, R, pos, nullptr);
+  forward_kinematics(quat, qpos, R, pos);
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     float p[3];
@@ -240,27 +256,89 @@ __global__ void __launch_bounds__(THREADS) fk_from_state_kernel(
     for (int i = 0; i < 3; ++i) out[(3 * c + i) * Bs + e] = xyz[c][i];
 }
 
-__global__ void __launch_bounds__(THREADS) fk_contact_xy_kernel(
-    const float* __restrict__ rows, float* __restrict__ out, int B) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= B) return;
-  const size_t Bs = static_cast<size_t>(B);
-  float base_pos[3], quat[4], qpos[NJ];
+// Body b (not the base) lies on branch BR.
+__host__ __device__ constexpr bool in_branch(int BR, int b) {
+  for (int n = 0; n < pf_br_len(BR); ++n)
+    if (pf_br_body(BR, n) == b) return true;
+  return false;
+}
+
+// World xy of sphere C, and of the spheres after it, that branch BR places:
+// its own, and for branch 0 those on the base.
+template <int BR, int C>
+__device__ __forceinline__ void spheres_xy(const float R[NB][3][3],
+                                           const float pos[NB][3],
+                                           const float base_xy[2],
+                                           float* __restrict__ out, size_t Bs,
+                                           int e, bool store) {
+  if constexpr (C < NC) {
+    constexpr int b = pf_coll_body(C);
+    if constexpr (b == 0 ? BR == 0 : in_branch(BR, b)) {
+      float p[3];
+      sphere_rel(C, R, pos, p);
 #pragma unroll
-  for (int i = 0; i < 3; ++i) base_pos[i] = rows[(K_POS + i) * Bs + e];
+      for (int i = 0; i < 2; ++i)
+        if (store) out[(2 * C + i) * Bs + e] = base_xy[i] + p[i];
+    }
+    spheres_xy<BR, C + 1>(R, pos, base_xy, out, Bs, e, store);
+  }
+}
+
+// World xy of the spheres of branch BR (a leg), and for branch 0 of the
+// spheres on the base, for env e: forward_kinematics and sphere_rel on the
+// branch's bodies alone, straight-line code with the model folded in.
+template <int BR>
+__device__ __forceinline__ void branch_xy(const float* __restrict__ rows,
+                                          float* __restrict__ out, size_t Bs,
+                                          int e, bool store) {
+  float quat[4], base_xy[2], qpos[NJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) quat[i] = rows[(K_QUAT + i) * Bs + e];
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) qpos[j] = rows[(K_QPOS + j) * Bs + e];
-  float xyz[NC][3];
-  sphere_world(base_pos, quat, qpos, xyz);
+  for (int i = 0; i < 2; ++i) base_xy[i] = rows[(K_POS + i) * Bs + e];
 #pragma unroll
-  for (int c = 0; c < NC; ++c)
+  for (int n = 0; n < pf_br_len(BR); ++n) {
+    const int j = pf_br_body(BR, n) - 1;
+    qpos[j] = rows[(K_QPOS + j) * Bs + e];
+  }
+  // the branch's bodies are in ascending order, so parents come first
+  float R[NB][3][3], pos[NB][3];
+  quat_to_mat(quat, R[0]);
+  pos[0][0] = pos[0][1] = pos[0][2] = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) out[(2 * c + i) * Bs + e] = xyz[c][i];
+  for (int n = 0; n < pf_br_len(BR); ++n) {
+    const int b = pf_br_body(BR, n);
+    fk_child(b, qpos[b - 1], R, pos);
+  }
+  spheres_xy<BR, 0>(R, pos, base_xy, out, Bs, e, store);
+}
+
+// Warp `warp` of the block runs branch `warp`: the branch is the same for
+// the whole warp, so no lanes diverge.
+template <int BR>
+__device__ __forceinline__ void branch_xy_of(int warp,
+                                             const float* __restrict__ rows,
+                                             float* __restrict__ out,
+                                             size_t Bs, int e, bool store) {
+  if (warp == BR) {
+    branch_xy<BR>(rows, out, Bs, e, store);
+  } else if constexpr (BR + 1 < PF_NBR) {
+    branch_xy_of<BR + 1>(warp, rows, out, Bs, e, store);
+  }
+}
+
+// A group of PF_NBR threads an env, one in each warp of the block, a thread
+// a leg; 32 envs a block, each row a warp loads or stores is 128 B.
+__global__ void __launch_bounds__(FK_THREADS) fk_contact_xy_kernel(
+    const float* __restrict__ rows, float* __restrict__ out, int B) {
+  const int e = blockIdx.x * 32 + threadIdx.x % 32;
+  const bool store = e < B;
+  branch_xy_of<0>(threadIdx.x / 32, rows, out, static_cast<size_t>(B),
+                  min(e, B - 1), store);
 }
 
 int blocks_for(int B) { return (B + THREADS - 1) / THREADS; }
+int fk_blocks_for(int B) { return (B + 31) / 32; }
 int sub_blocks_for(int B) {
   return (B + ENVS_PER_BLOCK - 1) / ENVS_PER_BLOCK;
 }
@@ -305,11 +383,21 @@ void pf_layout(int* out) {
 int pf_substep_smem_bytes() { return SUB_SMEM; }
 
 // Warps that one SM holds of the rollout substep kernel (which = 0) or the
-// substep kernel (1), by cudaOccupancyMaxActiveBlocksPerMultiprocessor;
-// -1 on an error.
+// substep kernel (1), by cudaOccupancyMaxActiveBlocksPerMultiprocessor; -1
+// on an error.
 int pf_substep_resident_warps(int which) {
   return which == 0 ? resident_warps(rollout_substep_kernel)
                     : resident_warps(substep_kernel);
+}
+
+// Warps that one SM holds of the sphere-xy FK kernel (no shared memory);
+// -1 on an error.
+int pf_fk_xy_resident_warps() {
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, fk_contact_xy_kernel, FK_THREADS, 0) != cudaSuccess)
+    return -1;
+  return blocks * FK_THREADS / 32;
 }
 
 // One decimation substep for B envs on `stream`.  `surf` may be null (flat
@@ -354,7 +442,7 @@ int pf_fk_from_state(const float* state, float* out, int B, void* stream) {
 // and qpos rows.
 int pf_fk_contact_xy(const float* rows, float* out, int B, void* stream) {
   if (B <= 0) return 0;
-  fk_contact_xy_kernel<<<blocks_for(B), THREADS, 0,
+  fk_contact_xy_kernel<<<fk_blocks_for(B), FK_THREADS, 0,
                          static_cast<cudaStream_t>(stream)>>>(rows, out, B);
   return static_cast<int>(cudaGetLastError());
 }

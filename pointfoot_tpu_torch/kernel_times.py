@@ -1,10 +1,13 @@
 """Times of the hand-written kernels alone, on synthetic inputs.
 
-    python -m pointfoot_tpu_torch.kernel_times [--num_envs 4096] [--check]
+    python -m pointfoot_tpu_torch.kernel_times [--num_envs 4096]
+        [--chol_systems 2048] [--check] [-k NAME]
 
-For the substep kernel (ANYmal C), the rollout substep kernel (PointFoot)
-and the SRB-LQR kernel (m = 6 and 12, horizon 12) it prints one JSON line
-each with two times per launch at `--num_envs` items:
+For the substep kernel (ANYmal C), the rollout substep kernel (PointFoot),
+the SRB-LQR kernel (m = 6 and 12, horizon 12) and the sphere-xy FK kernel
+(ANYmal C) at `--num_envs` items, and the Cholesky kernel (n = 18 and 12)
+at `--chol_systems` systems, it prints one JSON line each with two times
+per launch:
 
 - `wrapper_ms`: CUDA events around a loop of calls of the Python wrapper,
   as chip_smoke.py times a kernel.  Below some 0.02 ms this is the host's
@@ -12,12 +15,19 @@ each with two times per launch at `--num_envs` items:
 - `device_ms`: the same calls captured once in a CUDA graph and replayed,
   so that the device runs the launches back to back.
 
-`--check` also holds each kernel to its plain version at B = num_envs, 1000,
-1 and 4099 (and the SRB-LQR kernel at horizons 1 and 96) and two launches
-to each other bit for bit.  Inputs come from a seed: perturbed default
+A `launch floor` line times a one-element `zero_()` the same two ways: the
+least that any launch costs, to read a kernel of a few microseconds against.
+
+`--check` also holds each kernel to its plain version at B = num_envs (or
+chol_systems), 1000, 1 and 4099 (and the SRB-LQR kernel at horizons 1 and
+96) and two launches to each other bit for bit; the Cholesky kernel must
+equal its plain version and the FK kernel stay within 2e-5 m of it.
+`-k NAME` keeps the kernels whose name holds NAME (`-k cholesky`, `-k fk`,
+`-k substep`, `-k srb_lqr`).  Inputs come from a seed: perturbed default
 poses on a tilted random surface, the random dense LQR problems of the
-tests.  Needs a CUDA device.  The script uses only the wrappers' public
-functions, so it times whatever kernels the checkout holds.
+tests, SPD systems A Aᵀ + n I.  Needs a CUDA device.  The script uses only
+the wrappers' public functions, so it times whatever kernels the checkout
+holds.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import torch
 
 from pointfoot_tpu_torch import bench
 from pointfoot_tpu_torch.ops.cuda import build
+from pointfoot_tpu_torch.ops.cuda import cholesky as ch
 from pointfoot_tpu_torch.ops.cuda import riccati as rk
 from pointfoot_tpu_torch.ops.cuda import substep as sp
 from pointfoot_tpu_torch.physics.assets import get_model
@@ -38,6 +49,7 @@ ANYMAL_QDEF = [0.0, 0.4, -0.8] * 4
 DT, GRAVITY = 0.005, 9.81
 HORIZON = 12
 RAGGED = (1000, 1, 4099)
+FK_TOL = 2e-5  # m, tests/test_torch_cuda_kernels.py
 
 
 def events_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -121,9 +133,19 @@ def dense_problem(m: int, num: int, seed: int, device):
                     randn(num, n), randn(num, m))
 
 
-def hold(name: str, fn, plain, num: int) -> dict:
+def spd_systems(n: int, num: int, seed: int, device):
+    """`num` SPD systems A Aᵀ + n I and right-hand sides, staged (n·n, B)
+    and (n, B)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    M = torch.randn(num, n, n, generator=g, device=device)
+    A = M @ M.transpose(1, 2) + n * torch.eye(n, device=device)
+    b = torch.randn(num, n, generator=g, device=device)
+    return A.reshape(num, n * n).t().contiguous(), b.t().contiguous()
+
+
+def hold(name: str, fn, plain, num: int, tol=None) -> dict:
     """Max |kernel - plain| over the outputs, and whether two launches
-    agree bit for bit."""
+    agree bit for bit; with `tol`, the error must not exceed it."""
     got, again, want = fn(), fn(), plain()
     torch.cuda.synchronize()
     if isinstance(got, torch.Tensor):
@@ -135,6 +157,8 @@ def hold(name: str, fn, plain, num: int) -> dict:
     print(json.dumps(rec), flush=True)
     if not same:
         raise AssertionError(f"{name} B={num}: two launches differ")
+    if tol is not None and not err <= tol:
+        raise AssertionError(f"{name} B={num}: max |err| {err} > {tol}")
     return rec
 
 
@@ -145,28 +169,42 @@ def cols(tensors, num: int):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--num_envs", type=int, default=4096)
+    ap.add_argument("--chol_systems", type=int, default=2048)
     ap.add_argument("--check", action="store_true")
+    ap.add_argument("-k", dest="only", default="",
+                    help="time only the kernels whose name holds this")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device available")
     dev = torch.device("cuda")
-    num = args.num_envs
+    num, n_chol = args.num_envs, args.chol_systems
     print(f"card: {bench.card_line(dev)}", flush=True)
     any_model = get_model("anymal_c").to(dev)
     pf_model = get_model("pointfoot").to(dev)
     mc_any, mc_pf = sp.model_consts(any_model), sp.model_consts(pf_model)
     libs = build.build_all([build.model_spec(mc_any), build.model_spec(mc_pf),
-                            build.RICCATI_SPEC])
+                            build.RICCATI_SPEC, build.CHOLESKY_SPEC])
     for what, lib in zip(("ANYmal substep.cu", "PointFoot substep.cu",
-                          "riccati.cu"), libs):
+                          "riccati.cu", "cholesky.cu"), libs):
         print(f"[build] {what}: {lib.build_seconds:.2f} s", flush=True)
         for line in lib.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"[build]   {line.strip()}", flush=True)
+    print(f"[build] fk_contact_xy_kernel (ANYmal C): resident warps an SM "
+          f"{libs[0].lib.pf_fk_xy_resident_warps()}", flush=True)
+    for n in ch.SIZES:
+        lib = libs[3].lib
+        print(f"[build] chol_solve_kernel n={n}: {lib.pf_chol_lanes(n)} lanes "
+              f"a system, {lib.pf_chol_smem_bytes(n)} B of dynamic shared "
+              f"memory a block, resident warps an SM "
+              f"{lib.pf_chol_resident_warps(n)}", flush=True)
 
-    big = max(num, max(RAGGED))
+    big = max(num, n_chol, max(RAGGED))
     a_in, a_surf, _, _ = substep_inputs(any_model, ANYMAL_QDEF, 0.55, big, 1,
                                         dev)
+    # the FK input rows: base_pos, base_quat, qpos
+    a_fk = torch.cat([a_in[:7], a_in[13:13 + mc_any.nj]]).contiguous()
+    spd = {n: spd_systems(n, big, 20 + n, dev) for n in ch.SIZES}
     _, p_surf, p_state, p_ctrl = substep_inputs(pf_model, [0.0] * 6, 0.62,
                                                 big, 2, dev)
     dense = {m: dense_problem(m, big, 9 + m, dev) for m in rk.SIZES}
@@ -188,23 +226,41 @@ def main() -> int:
         return (lambda: rk.srb_lqr_lanes(*st, horizon),
                 lambda: rk.srb_lqr_lanes_plain(*st, horizon))
 
-    if args.check:
-        for n in (num,) + RAGGED:
-            hold("substep_kernel (ANYmal C)", *substep(n), n)
-            hold("rollout_substep_kernel (PointFoot)", *rollout(n), n)
-            for m in rk.SIZES:
-                hold(f"srb_lqr_kernel m={m} T={HORIZON}", *lqr(m, n), n)
-        for m in rk.SIZES:
-            for horizon in (1, 96):
-                hold(f"srb_lqr_kernel m={m} T={horizon}",
-                     *lqr(m, 1000, horizon), 1000)
+    def fk_xy(n):
+        rows = cols((a_fk,), n)[0]
+        return (lambda: sp.fk_xy_rows(mc_any, rows),
+                lambda: sp.fk_xy_rows_plain(mc_any, rows))
 
-    for name, fn in (
-            ("substep_kernel (ANYmal C)", substep(num)[0]),
-            ("rollout_substep_kernel (PointFoot)", rollout(num)[0]),
-            (f"srb_lqr_kernel m=6 T={HORIZON}", lqr(6, num)[0]),
-            (f"srb_lqr_kernel m=12 T={HORIZON}", lqr(12, num)[0])):
-        print(json.dumps({"kernel": name, "B": num,
+    def chol(size, n):
+        A_t, b_t = cols(spd[size], n)
+        return (lambda: ch.chol_solve_lanes(A_t, b_t),
+                lambda: ch.chol_solve_lanes_plain(A_t, b_t))
+
+    # name, items at full width, (kernel, plain) at a batch, tolerance
+    cases = [("substep_kernel (ANYmal C)", num, substep, None),
+             ("rollout_substep_kernel (PointFoot)", num, rollout, None)]
+    cases += [(f"srb_lqr_kernel m={m} T={HORIZON}", num,
+               lambda n, m=m: lqr(m, n), None) for m in rk.SIZES]
+    cases += [("fk_contact_xy_kernel (ANYmal C)", num, fk_xy, FK_TOL)]
+    cases += [(f"chol_solve_kernel n={size} (cholesky.cu)", n_chol,
+               lambda n, size=size: chol(size, n), 0.0)
+              for size in sorted(ch.SIZES, reverse=True)]
+    cases = [c for c in cases if args.only in c[0]]
+
+    if args.check:
+        for name, full, make, tol in cases:
+            for n in (full,) + RAGGED:
+                hold(name, *make(n), n, tol)
+            if name.startswith("srb_lqr_kernel"):
+                m = int(name.split("m=")[1].split()[0])
+                for horizon in (1, 96):
+                    hold(f"srb_lqr_kernel m={m} T={horizon}",
+                         *lqr(m, 1000, horizon), 1000)
+
+    one = torch.empty(1, device=dev)
+    for name, full, fn in [(c[0], c[1], c[2](c[1])[0]) for c in cases] + [
+            ("launch floor (one-element zero_)", 1, one.zero_)]:
+        print(json.dumps({"kernel": name, "B": full,
                           "wrapper_ms": events_ms(fn, 200),
                           "device_ms": graph_ms(fn)}), flush=True)
     return 0

@@ -104,7 +104,7 @@ def model_header(mc: ModelConsts) -> str:
     """pf_model.h for the kernels: sizes and constants of one robot, as
     `constexpr` accessors pf_*(i) that fold into unrolled per-thread code
     and as device arrays pfr_* for code whose lanes index them at run time,
-    with the tree cut into the branches below the base."""
+    with the tree cut into the branches below the base (both ways)."""
     nb, nj, nc = mc.nb, mc.nj, mc.nc
     br_bodies, br_spheres = branches(mc)
     nbr = len(br_bodies)
@@ -144,6 +144,8 @@ def model_header(mc: ModelConsts) -> str:
         _table("coll_radius", mc.collision_radius, [nc]),
         f"#define PF_NBR {nbr}\n#define PF_MAXBL {maxbl}\n"
         f"#define PF_MAXBS {maxbs}\n#define PF_MAXD {maxd}\n",
+        _table("br_len", [len(b) for b in br_bodies], [nbr], "int"),
+        _table("br_body", _padded(br_bodies, maxbl), [nbr, maxbl], "int"),
         _array("parent", list(mc.parent), [nb], "int"),
         _array("br_len", [len(b) for b in br_bodies], [nbr], "int"),
         _array("br_body", _padded(br_bodies, maxbl), [nbr, maxbl], "int"),
@@ -253,6 +255,8 @@ class ModelLibrary(KernelLibrary):
         lib.pf_substep_smem_bytes.restype = _I
         lib.pf_substep_resident_warps.argtypes = [_I]
         lib.pf_substep_resident_warps.restype = _I
+        lib.pf_fk_xy_resident_warps.argtypes = []
+        lib.pf_fk_xy_resident_warps.restype = _I
 
 
 class CholeskyLibrary(KernelLibrary):
@@ -262,6 +266,10 @@ class CholeskyLibrary(KernelLibrary):
         super().__init__(path, build_seconds, log)
         self.lib.pf_chol_solve.argtypes = [_P, _P, _P, _I, _I, _P]
         self.lib.pf_chol_solve.restype = _I
+        for fn in (self.lib.pf_chol_lanes, self.lib.pf_chol_smem_bytes,
+                   self.lib.pf_chol_resident_warps):
+            fn.argtypes = [_I]
+            fn.restype = _I
 
 
 class RiccatiLibrary(KernelLibrary):

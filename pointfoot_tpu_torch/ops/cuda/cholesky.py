@@ -1,9 +1,10 @@
 """Batched small-matrix Cholesky solve (pointfoot_tpu/ops/pallas/cholesky.py).
 
 Thousands of independent SPD systems of size n <= 18 (the velocity solve
-of physics/dynamics.step_batched), one per thread of csrc/cholesky.cu.  The
-batch is the minor axis: A is staged as (n·n, B) with A[i, j] in row
-i·n + j and b as (n, B), so a warp's loads of one entry are adjacent.
+of physics/dynamics.step_batched), each solved by a group of lanes of
+csrc/cholesky.cu with the system in a slab of shared memory.  The batch is
+the minor axis: A is staged as (n·n, B) with A[i, j] in row i·n + j and b
+as (n, B), so a block's loads of one entry are adjacent.
 
 `chol_solve_lanes` is the kernel's wrapper: the kernel for CUDA tensors,
 the plain version (`chol_solve_lanes_plain`, i.e. ops/linalg.chol_solve)

@@ -13,7 +13,9 @@ contiguous) inside:
 
 The two substep kernels give each env a group of four lanes and a slab of
 shared memory for its working set (csrc/rowdyn.cuh, substep_group), eight
-envs a one-warp block; the two FK kernels run one env per thread.
+envs a one-warp block; the sphere-xy FK kernel gives an env one thread a
+leg, a warp a leg of 32 envs; the sphere-xyz FK kernel runs one env per
+thread.
 
 Four wrappers launch the kernels of csrc/substep.cu for CUDA tensors:
 `rollout_step` (one rollout substep), `fk_rows` (collision-sphere xyz),

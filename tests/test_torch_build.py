@@ -152,7 +152,7 @@ def test_run_time_arrays_repeat_the_constexpr_tables(robot):
     for name in ("joint_pos", "joint_rot", "joint_axis", "q_lower",
                  "q_upper", "q_lower_stop", "q_upper_stop", "velocity_limit",
                  "effort_limit", "joint_damping", "mass", "com", "inertia",
-                 "coll_offset", "coll_radius"):
+                 "coll_offset", "coll_radius", "br_len", "br_body"):
         m = re.search(rf"pf_{name}\([^)]*\) {{\n  constexpr \w+ t(?:\[\d+\])+"
                       r" = (.*);\n", h)
         table = ast.literal_eval(re.sub(
@@ -171,3 +171,109 @@ def test_substep_sources_use_a_lane_group_and_shared_memory():
     assert "extern __shared__ float smem[]" in src
     assert "substep_group(" in src and "__syncwarp()" in body
     assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor" in src
+
+
+def _kernel_body(src: str, name: str) -> str:
+    """The body of `__global__ ... name(...) { ... }` in src, by braces."""
+    start = src.index("{", src.index(f" {name}(", src.index("__global__")))
+    depth = 0
+    for i in range(start, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        if depth == 0:
+            return src[start:i + 1]
+    raise AssertionError(f"{name}: unbalanced braces")
+
+
+def test_cholesky_kernel_stages_in_shared_memory_and_never_leaves_early():
+    """The Cholesky kernel gives a system a group of lanes and a slab of
+    dynamic shared memory, meets once at __syncthreads() and then
+    synchronises the group with __syncwarp(), and has no `return` before a
+    barrier: the tail block clamps its system index and skips the stores
+    instead."""
+    with open(os.path.join(build.CSRC, "cholesky.cu")) as f:
+        body = _kernel_body(f.read(), "chol_solve_kernel")
+    assert "extern __shared__ float smem[]" in body
+    assert "__syncthreads()" in body and "__syncwarp()" in body
+    assert "min(" in body and "B - 1)" in body and "if (store)" in body
+    assert re.search(r"\breturn\b", body) is None
+    assert "blockDim" not in body  # the block size is the kernel's own
+
+
+@pytest.mark.parametrize("n,lanes", [(12, 8), (18, 16)])
+def test_cholesky_staging_covers_the_lower_triangle_once(n, lanes):
+    """The kernel stages only A's lower triangle, the entries the factor
+    reads: its sweep, run here for every offset, loads each entry (i, j),
+    j <= i, exactly once and nothing above the diagonal."""
+    with open(os.path.join(build.CSRC, "cholesky.cu")) as f:
+        body = _kernel_body(f.read(), "chol_solve_kernel")
+    assert "for (int r = r0; r < N * N; r += SWEEP)" in body
+    assert "if (r % N <= r / N) ss[(r / N) * AST + r % N] = A[r * Bs + es];" \
+        in body
+    loaded = []
+    for r0 in range(lanes):  # SWEEP = lanes: threads a block / systems
+        for r in range(r0, n * n, lanes):
+            if r % n <= r // n:
+                loaded.append((r // n, r % n))
+    assert sorted(loaded) == [(i, j) for i in range(n) for j in range(i + 1)]
+
+
+def test_fk_xy_kernel_gives_each_warp_one_branch():
+    """The sphere-xy FK kernel runs branch w of the tree below the base in
+    warp w of its block (the branch is warp-uniform, so lanes never
+    diverge) on the folded constexpr tables, and its blocks are 32 envs of
+    PF_NBR warps."""
+    with open(os.path.join(build.CSRC, "substep.cu")) as f:
+        src = f.read()
+    body = _kernel_body(src, "fk_contact_xy_kernel")
+    assert "threadIdx.x / 32" in body and "branch_xy_of<0>(" in body
+    assert "min(e, B - 1)" in body and re.search(r"\breturn\b", body) is None
+    walk = src[src.index("void branch_xy("):src.index("void branch_xy_of(")]
+    assert "pf_br_body(BR, n)" in walk and "pfr_" not in walk
+    assert "constexpr int FK_THREADS = 32 * PF_NBR;" in src
+
+
+def test_typed_entry_points_are_defined_in_the_sources():
+    """Every C entry point that build.py types exists in the extern "C"
+    block of a csrc/ source (a missing one fails only at load time on the
+    card)."""
+    with open(build.__file__) as f:
+        typed = set(re.findall(r"\b(pf_\w+)\.(?:argtypes|restype)", f.read()))
+    with open(build.__file__) as f:
+        typed |= set(re.findall(r"lib\.(pf_\w+)", f.read()))
+    defined = set()
+    for name in os.listdir(build.CSRC):
+        with open(os.path.join(build.CSRC, name)) as f:
+            src = f.read()
+        if 'extern "C" {' in src:
+            block = src[src.index('extern "C" {'):]
+            defined |= set(re.findall(r"^\w[\w\s\*]*\b(pf_\w+)\(", block,
+                                      re.M))
+    assert {"pf_chol_solve", "pf_chol_lanes", "pf_chol_smem_bytes",
+            "pf_chol_resident_warps", "pf_substep_resident_warps",
+            "pf_fk_xy_resident_warps",
+            "pf_fk_contact_xy"} <= typed
+    assert typed <= defined, typed - defined
+
+
+@pytest.mark.parametrize("num", [1, 130])
+@pytest.mark.parametrize("n", [12, 18])
+def test_cholesky_cpu_route_is_linalg_chol_solve(n, num):
+    """On CPU tensors the Cholesky wrapper is the plain version,
+    ops/linalg.chol_solve, bit for bit, and launches nothing."""
+    import torch
+
+    from pointfoot_tpu_torch.ops import linalg
+    from pointfoot_tpu_torch.ops.cuda import cholesky as ch
+
+    rng = np.random.default_rng(100 * n + num)
+    M = rng.normal(size=(num, n, n)).astype(np.float32)
+    A = torch.tensor(M @ M.transpose(0, 2, 1) + n * np.eye(n, dtype=np.float32))
+    b = torch.tensor(rng.normal(size=(num, n)).astype(np.float32))
+    want = linalg.chol_solve(A, b)
+    before = ch.chol_solve_lanes.launches
+    x_t = ch.chol_solve_lanes(A.reshape(num, n * n).t().contiguous(),
+                              b.t().contiguous())
+    assert torch.equal(x_t.t(), want)
+    assert torch.equal(ch.chol_solve(A, b), want)
+    assert torch.equal(ch.chol_solve_best(A, b), want)
+    assert ch.chol_solve_lanes.launches == before

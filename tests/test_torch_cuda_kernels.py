@@ -198,50 +198,68 @@ def test_substep_kernel_matches_plain_on_ragged_batches(substep_rows, num):
 
 
 def test_substep_kernels_fit_an_sm(substep_rows):
-    """The block's slabs fit in shared memory, and an SM holds a warp."""
+    """The block's slabs fit in shared memory, and an SM holds a warp of
+    each kernel (the sphere-xy FK kernel's too)."""
     from pointfoot_tpu_torch.ops.cuda import build
 
     lib = build.load(substep_rows[0])
     assert 0 < lib.lib.pf_substep_smem_bytes() <= 232448
     assert lib.lib.pf_substep_resident_warps(0) >= 1
     assert lib.lib.pf_substep_resident_warps(1) >= 1
+    assert lib.lib.pf_fk_xy_resident_warps() >= 1
 
 
-def test_fk_xy_kernel_matches_plain(substep_rows):
+@pytest.mark.parametrize("num", [B, *RAGGED])
+def test_fk_xy_kernel_matches_plain(substep_rows, num):
+    """Within 2e-5 m of the plain version (bit-identical on the card so
+    far); 1 and 4099 envs leave the last block with idle groups, and two
+    launches agree bit for bit."""
     mc, (rows, _) = substep_rows
-    fk_in = torch.cat([rows[:7], rows[13:13 + mc.nj]]).contiguous()
+    fk_in = _columns(torch.cat([rows[:7], rows[13:13 + mc.nj]]), num)
     before = sp.fk_xy_rows.launches
     got = sp.fk_xy_rows(mc, fk_in)
     assert sp.fk_xy_rows.launches == before + 1
-    torch.testing.assert_close(got, sp.fk_xy_rows_plain(mc, fk_in),
-                               atol=2e-5, rtol=0)
+    again = sp.fk_xy_rows(mc, fk_in)
+    want = sp.fk_xy_rows_plain(mc, fk_in)
+    torch.cuda.synchronize()
+    assert got.shape == (2 * mc.nc, num) and torch.equal(got, again)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
 
 
+@pytest.mark.parametrize("num", [1, B, 2048, 4099])
 @pytest.mark.parametrize("n", [12, 18])
-def test_cholesky_kernel_matches_plain(n):
-    """Tolerance of tests/test_pallas.py:24; B = 1000 leaves the last block
-    with idle threads."""
+def test_cholesky_kernel_matches_plain(n, num):
+    """Bit-identical to the plain version (same operations in the same
+    order) and across two launches; within the tolerance of
+    tests/test_pallas.py:24 of a float64 solve.  1, 1000 and 4099 systems
+    leave the last block with idle groups."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from pointfoot_tpu_torch.ops.cuda import cholesky
+    from pointfoot_tpu_torch.ops.cuda import build, cholesky
 
-    rng = np.random.default_rng(n)
-    A = rng.normal(size=(B, n, n)).astype(np.float32)
+    rng = np.random.default_rng(n + num)
+    A = rng.normal(size=(num, n, n)).astype(np.float32)
     A = A @ A.transpose(0, 2, 1) + n * np.eye(n, dtype=np.float32)
-    b = rng.normal(size=(B, n)).astype(np.float32)
+    b = rng.normal(size=(num, n)).astype(np.float32)
     dev = torch.device("cuda")
-    A_t = torch.tensor(A.reshape(B, n * n).T.copy(), device=dev)
+    A_t = torch.tensor(A.reshape(num, n * n).T.copy(), device=dev)
     b_t = torch.tensor(b.T.copy(), device=dev)
     before = cholesky.chol_solve_lanes.launches
     x_t = cholesky.chol_solve_lanes(A_t, b_t)
     assert cholesky.chol_solve_lanes.launches == before + 1
+    again = cholesky.chol_solve_lanes(A_t, b_t)
     want = cholesky.chol_solve_lanes_plain(A_t, b_t)
     torch.cuda.synchronize()
-    torch.testing.assert_close(x_t, want, atol=3e-3, rtol=3e-3)
+    assert x_t.shape == (n, num)
+    assert torch.equal(x_t, want) and torch.equal(x_t, again)
     x = torch.linalg.solve(torch.tensor(A, dtype=torch.float64),
                            torch.tensor(b, dtype=torch.float64))
     torch.testing.assert_close(x_t.t().cpu().double(), x, atol=3e-3,
                                rtol=3e-3)
+    lib = build.load_cholesky().lib
+    assert lib.pf_chol_lanes(n) in (4, 8, 16)
+    assert 0 < lib.pf_chol_smem_bytes(n) <= 48 * 1024
+    assert lib.pf_chol_resident_warps(n) >= 4
     with pytest.raises(ValueError, match="no kernel for n = 7"):
         cholesky.chol_solve_lanes(A_t[:49].contiguous(), b_t[:7].contiguous())
 
