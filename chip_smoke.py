@@ -14,18 +14,21 @@ scenarios (the fused SRB-LQR kernel).
    memory a block, resident warps an SM);
 2. PointFoot kernels against their plain PyTorch versions on a state
    reached after 20 policy steps, with a push queued: the full decimation
-   rollout, one rollout substep and the sphere FK, each within its stated
-   tolerance; the rollout substep also at 1000, 1 and 4099 envs (batches
-   that leave a block's groups idle), and two launches bit for bit;
+   rollout and one rollout substep, each within its stated tolerance, also
+   at 1000, 1 and 4099 envs (batches that leave a block's groups idle),
+   and two launches bit for bit; the sphere-xyz FK bit for bit against its
+   plain version at 4096, 1000, 1 and 4099 envs, on this state, on an
+   anymal_c_rough state and on perturbed A1 poses, and two launches bit
+   for bit;
 3. step_batched's kernels against their plain versions on an anymal_c_rough
    state reached after 20 steps of the bench action signal, with a push
    queued: the mega-kernel route (sphere-xy FK, surface query, substep
    kernel) against the plain path, the substep kernel and the FK-xy
-   kernel against their twins at 4096, 1000, 1 and 4099 envs and two
-   launches bit for bit, and the Cholesky kernel bit for bit against
-   ops/linalg.chol_solve on the velocity systems of 2048 ANYmal (n = 18)
-   and 2048 PointFoot (n = 12) envs, at 1000, 1 and 4099 of them as well,
-   and two launches bit for bit;
+   kernel (bit for bit) against their twins at 4096, 1000, 1 and 4099
+   envs and two launches bit for bit, and the Cholesky kernel bit for bit
+   against ops/linalg.chol_solve on the velocity systems of 2048 ANYmal
+   (n = 18) and 2048 PointFoot (n = 12) envs, at 1000, 1 and 4099 of them
+   as well, and two launches bit for bit;
    for every kernel: per-launch time of the kernel (its launches replayed
    from a CUDA graph, so the device's time; and a loop of wrapper calls,
    which cannot show less than the host's time to enqueue one) and of the
@@ -78,7 +81,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from pointfoot_tpu_torch import bench
-from pointfoot_tpu_torch.kernel_times import dense_problem, graph_ms
+from pointfoot_tpu_torch.kernel_times import (A1_QDEF, dense_problem,
+                                              graph_ms, substep_inputs)
 from pointfoot_tpu_torch.kernel_times import events_ms as cuda_ms
 from pointfoot_tpu_torch.mpc import srb
 from pointfoot_tpu_torch.ops.cuda import build
@@ -108,7 +112,6 @@ RICCATI_SRC = "pointfoot_tpu_torch/csrc/riccati.cu"
 ROLLOUT_TOL = {"qvel": 2e-3, "base_lin_vel": 5e-4, "base_pos": 5e-5,
                "tau": 5e-3, "sphere_pos": 5e-5}
 FORCE_ATOL, FORCE_RTOL = 0.05, 1e-3
-FK_TOL = 2e-5
 # tolerances of tests/test_pallas_substep.py:50-60 (one substep vs
 # step_batched): (atol, rtol) per state field
 STEP_TOL = {"base_lin_vel": (3e-4, 3e-4), "base_ang_vel": (3e-4, 3e-4),
@@ -139,7 +142,6 @@ LQR_LONG_HORIZON = 96  # its gains do not fit in a block's shared memory
 TICK_TAU_TOL = (2e-3, 2e-2)  # (rtol, atol), N·m
 TICK_FORCE_TOL = (2e-3, 5e-2)  # (rtol, atol), N
 MPC_ITERS, MPC_REPS = 20, 3
-A1_QDEF = (-0.1, 0.8, -1.5, 0.1, 0.8, -1.5, -0.1, 1.0, -1.5, 0.1, 1.0, -1.5)
 # the closed-loop recipe of tests/test_srb.py:45-92
 SRB_GATE_CFG = dict(height_target=0.28, w_vel=1.0, w_height=10.0,
                     w_orient=5.0, w_omega=0.5, w_force_normal=1e-3,
@@ -305,6 +307,13 @@ def build_kernels(mc_pf, mc_any, mc_a1):
         f"leg, resident warps an SM {fk_warps}")
     if fk_warps < 1:
         raise AssertionError("fk_contact_xy_kernel does not fit an SM")
+    for what, lib in zip(("PointFoot", "ANYmal", "A1"), libs):
+        warps = lib.lib.pf_fk_xyz_resident_warps()
+        log(f"[kernels] {what} fk_from_state_kernel: 32 envs a block, a warp "
+            f"a leg, resident warps an SM {warps}")
+        if warps < 1:
+            raise AssertionError(f"{what} fk_from_state_kernel does not fit "
+                                 f"an SM")
     for n in ch.SIZES:
         chol_lib = libs[3].lib
         warps = chol_lib.pf_chol_resident_warps(n)
@@ -382,6 +391,28 @@ def check_rollout_step(mc, step_args):
             float(force_err.max()), ke)
 
 
+def check_fk_rows(mc, state_rows, what) -> float:
+    """The sphere-xyz FK kernel does the plain version's operations in its
+    order, so the two agree bit for bit: at the full width and the RAGGED
+    batches, and two launches.  Returns the max |err| (0)."""
+    err = 0.0
+    for num in (state_rows.shape[1],) + RAGGED:
+        part = ragged_columns((state_rows,), num)[0]
+        got = sp.fk_rows(mc, part)
+        want = sp.fk_rows_plain(mc, part)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(
+                f"fk_rows {what} B={num}: not bit-identical to the plain "
+                f"version, max |err| {max_err(got, want)}")
+        err = max(err, max_err(got, want))
+    check_same_bits(f"fk_from_state {what}",
+                    lambda: sp.fk_rows(mc, state_rows))
+    log(f"[kernels] fk_from_state {what}: bit-identical to the plain version "
+        f"at B = {state_rows.shape[1]}, {', '.join(map(str, RAGGED))}")
+    return err
+
+
 def pointfoot_kernels(env, mc, policy):
     state = env.init_state(0)
     obs = torch.zeros(NUM_ENVS, env.num_obs, device=env.device)
@@ -421,10 +452,7 @@ def pointfoot_kernels(env, mc, policy):
             f"(state rows {errs[1]:.3g}, forces {errs[2]:.3g})")
     check_same_bits("rollout_substep", lambda: sp.rollout_step(*step_args))
     nj, nc = mc.nj, mc.nc
-    fk_k = sp.fk_rows(mc, state_rows)
-    fk_err = max_err(fk_k, xyz)
-    if not fk_err <= FK_TOL:
-        raise AssertionError(f"fk_rows: max |err| {fk_err} > {FK_TOL}")
+    fk_err = check_fk_rows(mc, state_rows, "PointFoot")
     log(f"[kernels] rollout_substep max |err| {step_err:.3g} (state rows "
         f"{state_err:.3g}, forces {force_err:.3g}); "
         f"fk_from_state max |err| {fk_err:.3g}")
@@ -609,12 +637,13 @@ def anymal_kernels(env, mc, pf_env, pf_state):
         xy_p = sp.fk_xy_rows_plain(mc, part)
         torch.cuda.synchronize()
         err = max_err(xy_k, xy_p)
-        if xy_k.shape != xy_p.shape or not err <= FK_TOL:
-            raise AssertionError(f"fk_contact_xy B={num}: max |err| {err} > "
-                                 f"{FK_TOL}")
+        if xy_k.shape != xy_p.shape or not torch.equal(xy_k, xy_p):
+            raise AssertionError(f"fk_contact_xy B={num}: not bit-identical "
+                                 f"to the plain version, max |err| {err}")
         log(f"[kernels] fk_contact_xy B={num}: max |err| {err:.3g}")
         xy_err = max(xy_err, err)
     check_same_bits("fk_contact_xy", lambda: sp.fk_xy_rows(mc, fk_in))
+    check_fk_rows(mc, sp.pack_state(phys, phys.qvel), "ANYmal")
     nj, nc = mc.nj, mc.nc
     log(f"[kernels] substep kernel vs plain twin, max |err| {sub_err:.3g} "
         f"(state rows {sub_state_err:.3g}); "
@@ -1115,13 +1144,16 @@ def main() -> int:
     mc_pf = sp.model_consts(pf_env.model)
     mc_any = sp.model_consts(any_env.model)
     a1_model = get_model("a1").to(pf_env.device)
-    build_kernels(mc_pf, mc_any, sp.model_consts(a1_model))
+    mc_a1 = sp.model_consts(a1_model)
+    build_kernels(mc_pf, mc_any, mc_a1)
     policy = policy_eval.inference_policy(
         policy_eval.load_actor(pf_env, "pointfoot_rough"))
 
     roll, fk, pf_state, xyz = pointfoot_kernels(pf_env, mc_pf, policy)
     sub, fkxy, chol, lay = anymal_kernels(any_env, mc_any, pf_env,
                                           pf_state)
+    check_fk_rows(mc_a1, substep_inputs(a1_model, A1_QDEF, 0.3, NUM_ENVS, 3,
+                                        pf_env.device)[2], "A1 perturbed")
     log(f"[t] kernels checked at {time.perf_counter() - t_start:.1f} s")
     pf_launches = pointfoot_rollout(pf_env, mc_pf, policy, xyz)
     any_launches = anymal_rollout(any_env, lay)

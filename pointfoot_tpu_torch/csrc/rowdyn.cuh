@@ -36,12 +36,13 @@
 //   - sensors by sphere, integration by joint.
 // The lanes of a group run the same instructions on different bodies, so
 // the model's constants are device arrays pfr_* indexed at run time; the
-// two FK kernels run fk_child below a thread a body at a time, whose
-// constexpr accessors pf_*(i) fold into immediates.  Every constant is
-// float: a double would silently promote the arithmetic and change both
-// the result and the speed.  Slabs are 4 mod 32 floats apart and A's rows
-// 19, so the lanes of a warp fall on different banks when they read one
-// address per group, neighbouring addresses or neighbouring rows.
+// two sphere FK kernels of substep.cu run fk_child a body at a time, a
+// thread a branch, on the constexpr accessors pf_*(i), which fold into
+// immediates.  Every constant is float: a double would silently promote
+// the arithmetic and change both the result and the speed.  Slabs are 4
+// mod 32 floats apart and A's rows 19, so the lanes of a warp fall on
+// different banks when they read one address per group, neighbouring
+// addresses or neighbouring rows.
 //
 // What is unrolled is chosen by measurement (H100): a block is one warp
 // that runs every instruction once, so straight-line code is fetched as it
@@ -144,17 +145,6 @@ __device__ __forceinline__ void fk_child(int b, float qj, float R[NB][3][3],
     for (int k = 0; k < 3; ++k)
       R[b][i][k] = frame0[i][0] * Rj[0][k] + frame0[i][1] * Rj[1][k] +
                    frame0[i][2] * Rj[2][k];
-}
-
-// Body rotations and positions relative to the base origin.
-__device__ __forceinline__ void forward_kinematics(const float quat[4],
-                                                   const float qpos[NJ],
-                                                   float R[NB][3][3],
-                                                   float pos[NB][3]) {
-  quat_to_mat(quat, R[0]);
-  pos[0][0] = pos[0][1] = pos[0][2] = 0.0f;
-#pragma unroll
-  for (int b = 1; b < NB; ++b) fk_child(b, qpos[b - 1], R, pos);
 }
 
 // Sphere c relative to the base origin.

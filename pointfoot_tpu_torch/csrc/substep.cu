@@ -23,27 +23,28 @@
 //   - substep_kernel: the substep with torque, base force and surface rows
 //     as inputs; the force applies on every call (step_batched passes the
 //     push on substep 0 only);
-//   - fk_contact_xy_kernel: sphere xy, a thread a leg: 32 envs a block,
-//     warp w of the block walks branch w (a leg) of each env and places the
-//     leg's spheres, straight-line code with the model folded in.  The
-//     branch is the same across a warp, so no lanes diverge.  At 4096
-//     ANYmal envs (H100 80GB HBM3, 700 W, CUDA graph replay): 0.0028 ms
-//     against 0.0033 one env a thread; a launch alone takes 0.0010, the
-//     one-env-a-thread kernel with the FK taken out 0.0014.  Four lanes of
-//     a warp an env, a lane a leg on the run-time tables pfr_* with the
-//     frames in a slab, took 0.0045-0.0048: the tables' loads and the
-//     slab's round trips cost more than the lanes gained;
-//   - fk_from_state_kernel: sphere xyz, one thread per env, straight-line
-//     code with the model folded in.
+//   - fk_contact_xy_kernel and fk_from_state_kernel: sphere xy from the FK
+//     rows and sphere xyz from the rollout state rows, one walk
+//     (branch_fk) templated on the input row layout and the output width:
+//     32 envs a block, warp w of the block walks branch w (a leg) of each
+//     env and places the leg's spheres (branch 0 those on the base too),
+//     straight-line code with the model folded in.  The branch is the same
+//     across a warp, so no lanes diverge.  The xy kernel at 4096 ANYmal envs
+//     (H100 80GB HBM3, 700 W, CUDA graph replay): 0.0028 ms against 0.0033
+//     one env a thread; a launch alone takes 0.0010, the one-env-a-thread
+//     kernel with the FK taken out 0.0014.  Four lanes of a warp an env, a
+//     lane a leg on the run-time tables pfr_* with the frames in a slab,
+//     took 0.0045-0.0048: the tables' loads and the slab's round trips
+//     cost more than the lanes gained.
 //
 // Bound.  PointFoot's rollout substep moves (31 + 42 + 36 + 31 + 60) * 4 B
 // = 800 B per env and ANYmal's substep (83 + 52 + 76) * 4 B = 844 B: at
 // 4096 envs about 3.3-3.5 MB, 1 us of HBM time at 3.35 TB/s, and about as
 // much at the float32 peak.  The kernels are bound by latency, not by
 // either: see rowdyn.cuh for what the group-of-lanes design does about it.
-// The sphere-xy FK moves (19 + 26) * 4 B = 180 B an ANYmal env, 0.22 us of
-// HBM time at 4096 envs: a launch and one round trip to memory set its
-// time.
+// The sphere-xy FK moves (18 + 26) * 4 B = 176 B an ANYmal env, 0.22 us of
+// HBM time at 4096 envs, the sphere-xyz FK (19 + 39) * 4 B = 232 B: a
+// launch and one round trip to memory set their time.
 
 #include "rowdyn.cuh"
 
@@ -80,7 +81,14 @@ constexpr int O_FORCE = S_QVEL + NJ, R_SUB_OUT = O_FORCE + 3 * NC;
 // FK input rows: base_pos 3, base_quat 4, qpos
 constexpr int K_POS = 0, K_QUAT = 3, K_QPOS = 7, R_FK_IN = K_QPOS + NJ;
 
-constexpr int THREADS = 128;  // the per-thread FK kernel
+// Where the sphere FK finds base_pos, base_quat and the first qpos row.
+template <int P, int Q, int J>
+struct PoseRows {
+  static constexpr int POS = P, QUAT = Q, QPOS = J;
+};
+using FkInRows = PoseRows<K_POS, K_QUAT, K_QPOS>;  // fk_contact_xy_kernel
+using StateRows = PoseRows<S_POS, S_QUAT, S_QPOS>;  // fk_from_state_kernel
+
 constexpr int SUB_THREADS = LANES * ENVS_PER_BLOCK;  // the substep kernels
 constexpr int SUB_SMEM = ENVS_PER_BLOCK * slab::STRIDE * 4;  // bytes a block
 // rows a warp sweeps in one pass
@@ -96,7 +104,7 @@ static_assert(slab::I_SURF == R_SUB_IN && slab::I_TAU == S_LQVEL &&
 static_assert(slab::A - slab::SPH >= R_CTRL, "no room to stage the controls");
 static_assert(SUB_SMEM <= 232448, "a block's slabs exceed shared memory");
 
-// The xy FK kernel: a warp a branch below the base, 32 envs a block
+// The sphere FK kernels: a warp a branch below the base, 32 envs a block
 constexpr int FK_THREADS = 32 * PF_NBR;
 
 // nrows rows of column es into dst, a row every SWEEP lanes
@@ -121,22 +129,6 @@ __device__ __forceinline__ void sweep_surface(const float* __restrict__ surf,
   } else {
     for (int r = r0; r < R_SURF; r += SWEEP)
       dst[r] = r >= NC && (r - NC) % 3 == 2 ? 1.0f : 0.0f;
-  }
-}
-
-// World xyz of every sphere of the pose (base_pos, quat, qpos).
-__device__ __forceinline__ void sphere_world(const float base_pos[3],
-                                             const float quat[4],
-                                             const float qpos[NJ],
-                                             float xyz[NC][3]) {
-  float R[NB][3][3], pos[NB][3];
-  forward_kinematics(quat, qpos, R, pos);
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    float p[3];
-    sphere_rel(c, R, pos, p);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) xyz[c][i] = base_pos[i] + p[i];
   }
 }
 
@@ -236,26 +228,6 @@ __global__ void __launch_bounds__(SUB_THREADS) substep_kernel(
   if (store) sweep_out(out_rows, R_SUB_OUT, Bs, es, r0, ss + slab::OUT);
 }
 
-__global__ void __launch_bounds__(THREADS) fk_from_state_kernel(
-    const float* __restrict__ state, float* __restrict__ out, int B) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= B) return;
-  const size_t Bs = static_cast<size_t>(B);
-  float base_pos[3], quat[4], qpos[NJ];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) base_pos[i] = state[(S_POS + i) * Bs + e];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) quat[i] = state[(S_QUAT + i) * Bs + e];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) qpos[j] = state[(S_QPOS + j) * Bs + e];
-  float xyz[NC][3];
-  sphere_world(base_pos, quat, qpos, xyz);
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int i = 0; i < 3; ++i) out[(3 * c + i) * Bs + e] = xyz[c][i];
-}
-
 // Body b (not the base) lies on branch BR.
 __host__ __device__ constexpr bool in_branch(int BR, int b) {
   for (int n = 0; n < pf_br_len(BR); ++n)
@@ -263,43 +235,45 @@ __host__ __device__ constexpr bool in_branch(int BR, int b) {
   return false;
 }
 
-// World xy of sphere C, and of the spheres after it, that branch BR places:
-// its own, and for branch 0 those on the base.
-template <int BR, int C>
-__device__ __forceinline__ void spheres_xy(const float R[NB][3][3],
-                                           const float pos[NB][3],
-                                           const float base_xy[2],
-                                           float* __restrict__ out, size_t Bs,
-                                           int e, bool store) {
+// World position (the first W of x, y, z) of sphere C, and of the spheres
+// after it, that branch BR places: its own, and for branch 0 those on the
+// base.  Output row W·c + i holds coordinate i of sphere c.
+template <int W, int BR, int C>
+__device__ __forceinline__ void place_spheres(const float R[NB][3][3],
+                                              const float pos[NB][3],
+                                              const float base[W],
+                                              float* __restrict__ out,
+                                              size_t Bs, int e, bool store) {
   if constexpr (C < NC) {
     constexpr int b = pf_coll_body(C);
     if constexpr (b == 0 ? BR == 0 : in_branch(BR, b)) {
       float p[3];
       sphere_rel(C, R, pos, p);
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (store) out[(2 * C + i) * Bs + e] = base_xy[i] + p[i];
+      for (int i = 0; i < W; ++i)
+        if (store) out[(W * C + i) * Bs + e] = base[i] + p[i];
     }
-    spheres_xy<BR, C + 1>(R, pos, base_xy, out, Bs, e, store);
+    place_spheres<W, BR, C + 1>(R, pos, base, out, Bs, e, store);
   }
 }
 
-// World xy of the spheres of branch BR (a leg), and for branch 0 of the
-// spheres on the base, for env e: forward_kinematics and sphere_rel on the
-// branch's bodies alone, straight-line code with the model folded in.
-template <int BR>
-__device__ __forceinline__ void branch_xy(const float* __restrict__ rows,
+// World position of the spheres of branch BR (a leg), and for branch 0 of
+// the spheres on the base, for env e of the pose rows laid out as L: the
+// body frames of the branch alone and sphere_rel, straight-line code with
+// the model folded in.  Base z is read only for W = 3.
+template <class L, int W, int BR>
+__device__ __forceinline__ void branch_fk(const float* __restrict__ rows,
                                           float* __restrict__ out, size_t Bs,
                                           int e, bool store) {
-  float quat[4], base_xy[2], qpos[NJ];
+  float quat[4], base[W], qpos[NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) quat[i] = rows[(K_QUAT + i) * Bs + e];
+  for (int i = 0; i < 4; ++i) quat[i] = rows[(L::QUAT + i) * Bs + e];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) base_xy[i] = rows[(K_POS + i) * Bs + e];
+  for (int i = 0; i < W; ++i) base[i] = rows[(L::POS + i) * Bs + e];
 #pragma unroll
   for (int n = 0; n < pf_br_len(BR); ++n) {
     const int j = pf_br_body(BR, n) - 1;
-    qpos[j] = rows[(K_QPOS + j) * Bs + e];
+    qpos[j] = rows[(L::QPOS + j) * Bs + e];
   }
   // the branch's bodies are in ascending order, so parents come first
   float R[NB][3][3], pos[NB][3];
@@ -310,34 +284,43 @@ __device__ __forceinline__ void branch_xy(const float* __restrict__ rows,
     const int b = pf_br_body(BR, n);
     fk_child(b, qpos[b - 1], R, pos);
   }
-  spheres_xy<BR, 0>(R, pos, base_xy, out, Bs, e, store);
+  place_spheres<W, BR, 0>(R, pos, base, out, Bs, e, store);
 }
 
 // Warp `warp` of the block runs branch `warp`: the branch is the same for
 // the whole warp, so no lanes diverge.
-template <int BR>
-__device__ __forceinline__ void branch_xy_of(int warp,
+template <class L, int W, int BR>
+__device__ __forceinline__ void branch_fk_of(int warp,
                                              const float* __restrict__ rows,
                                              float* __restrict__ out,
                                              size_t Bs, int e, bool store) {
   if (warp == BR) {
-    branch_xy<BR>(rows, out, Bs, e, store);
+    branch_fk<L, W, BR>(rows, out, Bs, e, store);
   } else if constexpr (BR + 1 < PF_NBR) {
-    branch_xy_of<BR + 1>(warp, rows, out, Bs, e, store);
+    branch_fk_of<L, W, BR + 1>(warp, rows, out, Bs, e, store);
   }
 }
 
 // A group of PF_NBR threads an env, one in each warp of the block, a thread
-// a leg; 32 envs a block, each row a warp loads or stores is 128 B.
+// a leg; 32 envs a block, each row a warp loads or stores is 128 B.  The
+// tail block clamps its env to B - 1 and skips the stores.
 __global__ void __launch_bounds__(FK_THREADS) fk_contact_xy_kernel(
     const float* __restrict__ rows, float* __restrict__ out, int B) {
   const int e = blockIdx.x * 32 + threadIdx.x % 32;
   const bool store = e < B;
-  branch_xy_of<0>(threadIdx.x / 32, rows, out, static_cast<size_t>(B),
-                  min(e, B - 1), store);
+  branch_fk_of<FkInRows, 2, 0>(threadIdx.x / 32, rows, out,
+                               static_cast<size_t>(B), min(e, B - 1), store);
 }
 
-int blocks_for(int B) { return (B + THREADS - 1) / THREADS; }
+// The same walk on the rollout state rows, x, y and z of every sphere.
+__global__ void __launch_bounds__(FK_THREADS) fk_from_state_kernel(
+    const float* __restrict__ state, float* __restrict__ out, int B) {
+  const int e = blockIdx.x * 32 + threadIdx.x % 32;
+  const bool store = e < B;
+  branch_fk_of<StateRows, 3, 0>(threadIdx.x / 32, state, out,
+                                static_cast<size_t>(B), min(e, B - 1), store);
+}
+
 int fk_blocks_for(int B) { return (B + 31) / 32; }
 int sub_blocks_for(int B) {
   return (B + ENVS_PER_BLOCK - 1) / ENVS_PER_BLOCK;
@@ -358,6 +341,16 @@ int resident_warps(Kernel kernel) {
           &blocks, kernel, SUB_THREADS, SUB_SMEM) != cudaSuccess)
     return -1;
   return blocks * SUB_THREADS / 32;
+}
+
+template <class Kernel>
+int fk_resident_warps(Kernel kernel) {
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                    FK_THREADS, 0) !=
+      cudaSuccess)
+    return -1;
+  return blocks * FK_THREADS / 32;
 }
 
 }  // namespace
@@ -393,11 +386,13 @@ int pf_substep_resident_warps(int which) {
 // Warps that one SM holds of the sphere-xy FK kernel (no shared memory);
 // -1 on an error.
 int pf_fk_xy_resident_warps() {
-  int blocks = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, fk_contact_xy_kernel, FK_THREADS, 0) != cudaSuccess)
-    return -1;
-  return blocks * FK_THREADS / 32;
+  return fk_resident_warps(fk_contact_xy_kernel);
+}
+
+// Warps that one SM holds of the sphere-xyz FK kernel (no shared memory);
+// -1 on an error.
+int pf_fk_xyz_resident_warps() {
+  return fk_resident_warps(fk_from_state_kernel);
 }
 
 // One decimation substep for B envs on `stream`.  `surf` may be null (flat
@@ -433,7 +428,7 @@ int pf_substep(const float* rows, const float* surf, float* out_rows, int B,
 // World xyz of every collision sphere (3·nc rows) from the state rows.
 int pf_fk_from_state(const float* state, float* out, int B, void* stream) {
   if (B <= 0) return 0;
-  fk_from_state_kernel<<<blocks_for(B), THREADS, 0,
+  fk_from_state_kernel<<<fk_blocks_for(B), FK_THREADS, 0,
                          static_cast<cudaStream_t>(stream)>>>(state, out, B);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,10 +4,11 @@
         [--chol_systems 2048] [--check] [-k NAME]
 
 For the substep kernel (ANYmal C), the rollout substep kernel (PointFoot),
-the SRB-LQR kernel (m = 6 and 12, horizon 12) and the sphere-xy FK kernel
-(ANYmal C) at `--num_envs` items, and the Cholesky kernel (n = 18 and 12)
-at `--chol_systems` systems, it prints one JSON line each with two times
-per launch:
+the SRB-LQR kernel (m = 6 and 12, horizon 12), the sphere-xy FK kernel
+(ANYmal C) and the sphere-xyz FK kernel (PointFoot, ANYmal C, A1) at
+`--num_envs` items, and the Cholesky kernel (n = 18 and 12) at
+`--chol_systems` systems, it prints one JSON line each with two times per
+launch:
 
 - `wrapper_ms`: CUDA events around a loop of calls of the Python wrapper,
   as chip_smoke.py times a kernel.  Below some 0.02 ms this is the host's
@@ -20,8 +21,8 @@ least that any launch costs, to read a kernel of a few microseconds against.
 
 `--check` also holds each kernel to its plain version at B = num_envs (or
 chol_systems), 1000, 1 and 4099 (and the SRB-LQR kernel at horizons 1 and
-96) and two launches to each other bit for bit; the Cholesky kernel must
-equal its plain version and the FK kernel stay within 2e-5 m of it.
+96) and two launches to each other bit for bit; the Cholesky and the two
+sphere FK kernels must equal their plain versions.
 `-k NAME` keeps the kernels whose name holds NAME (`-k cholesky`, `-k fk`,
 `-k substep`, `-k srb_lqr`).  Inputs come from a seed: perturbed default
 poses on a tilted random surface, the random dense LQR problems of the
@@ -46,10 +47,10 @@ from pointfoot_tpu_torch.physics.assets import get_model
 from pointfoot_tpu_torch.physics.model import PhysicsParams, PhysicsState
 
 ANYMAL_QDEF = [0.0, 0.4, -0.8] * 4
+A1_QDEF = (-0.1, 0.8, -1.5, 0.1, 0.8, -1.5, -0.1, 1.0, -1.5, 0.1, 1.0, -1.5)
 DT, GRAVITY = 0.005, 9.81
 HORIZON = 12
 RAGGED = (1000, 1, 4099)
-FK_TOL = 2e-5  # m, tests/test_torch_cuda_kernels.py
 
 
 def events_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -181,17 +182,24 @@ def main() -> int:
     print(f"card: {bench.card_line(dev)}", flush=True)
     any_model = get_model("anymal_c").to(dev)
     pf_model = get_model("pointfoot").to(dev)
+    a1_model = get_model("a1").to(dev)
     mc_any, mc_pf = sp.model_consts(any_model), sp.model_consts(pf_model)
+    mc_a1 = sp.model_consts(a1_model)
     libs = build.build_all([build.model_spec(mc_any), build.model_spec(mc_pf),
-                            build.RICCATI_SPEC, build.CHOLESKY_SPEC])
+                            build.RICCATI_SPEC, build.CHOLESKY_SPEC,
+                            build.model_spec(mc_a1)])
     for what, lib in zip(("ANYmal substep.cu", "PointFoot substep.cu",
-                          "riccati.cu", "cholesky.cu"), libs):
+                          "riccati.cu", "cholesky.cu", "A1 substep.cu"),
+                         libs):
         print(f"[build] {what}: {lib.build_seconds:.2f} s", flush=True)
         for line in lib.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"[build]   {line.strip()}", flush=True)
     print(f"[build] fk_contact_xy_kernel (ANYmal C): resident warps an SM "
           f"{libs[0].lib.pf_fk_xy_resident_warps()}", flush=True)
+    for what, i in (("PointFoot", 1), ("ANYmal C", 0), ("A1", 4)):
+        print(f"[build] fk_from_state_kernel ({what}): resident warps an SM "
+              f"{libs[i].lib.pf_fk_xyz_resident_warps()}", flush=True)
     for n in ch.SIZES:
         lib = libs[3].lib
         print(f"[build] chol_solve_kernel n={n}: {lib.pf_chol_lanes(n)} lanes "
@@ -200,8 +208,9 @@ def main() -> int:
               f"{lib.pf_chol_resident_warps(n)}", flush=True)
 
     big = max(num, n_chol, max(RAGGED))
-    a_in, a_surf, _, _ = substep_inputs(any_model, ANYMAL_QDEF, 0.55, big, 1,
-                                        dev)
+    a_in, a_surf, a_state, _ = substep_inputs(any_model, ANYMAL_QDEF, 0.55,
+                                              big, 1, dev)
+    a1_state = substep_inputs(a1_model, A1_QDEF, 0.3, big, 3, dev)[2]
     # the FK input rows: base_pos, base_quat, qpos
     a_fk = torch.cat([a_in[:7], a_in[13:13 + mc_any.nj]]).contiguous()
     spd = {n: spd_systems(n, big, 20 + n, dev) for n in ch.SIZES}
@@ -231,6 +240,11 @@ def main() -> int:
         return (lambda: sp.fk_xy_rows(mc_any, rows),
                 lambda: sp.fk_xy_rows_plain(mc_any, rows))
 
+    def fk_xyz(mc, state, n):
+        rows = cols((state,), n)[0]
+        return (lambda: sp.fk_rows(mc, rows),
+                lambda: sp.fk_rows_plain(mc, rows))
+
     def chol(size, n):
         A_t, b_t = cols(spd[size], n)
         return (lambda: ch.chol_solve_lanes(A_t, b_t),
@@ -241,7 +255,12 @@ def main() -> int:
              ("rollout_substep_kernel (PointFoot)", num, rollout, None)]
     cases += [(f"srb_lqr_kernel m={m} T={HORIZON}", num,
                lambda n, m=m: lqr(m, n), None) for m in rk.SIZES]
-    cases += [("fk_contact_xy_kernel (ANYmal C)", num, fk_xy, FK_TOL)]
+    cases += [("fk_contact_xy_kernel (ANYmal C)", num, fk_xy, 0.0)]
+    cases += [(f"fk_from_state_kernel ({what})", num,
+               lambda n, mc=mc, st=st: fk_xyz(mc, st, n), 0.0)
+              for what, mc, st in (("PointFoot", mc_pf, p_state),
+                                   ("ANYmal C", mc_any, a_state),
+                                   ("A1", mc_a1, a1_state))]
     cases += [(f"chol_solve_kernel n={size} (cholesky.cu)", n_chol,
                lambda n, size=size: chol(size, n), 0.0)
               for size in sorted(ch.SIZES, reverse=True)]

@@ -255,8 +255,9 @@ class ModelLibrary(KernelLibrary):
         lib.pf_substep_smem_bytes.restype = _I
         lib.pf_substep_resident_warps.argtypes = [_I]
         lib.pf_substep_resident_warps.restype = _I
-        lib.pf_fk_xy_resident_warps.argtypes = []
-        lib.pf_fk_xy_resident_warps.restype = _I
+        for fn in (lib.pf_fk_xy_resident_warps, lib.pf_fk_xyz_resident_warps):
+            fn.argtypes = []
+            fn.restype = _I
 
 
 class CholeskyLibrary(KernelLibrary):

@@ -9,7 +9,8 @@ as (n, B), so a block's loads of one entry are adjacent.
 `chol_solve_lanes` is the kernel's wrapper: the kernel for CUDA tensors,
 the plain version (`chol_solve_lanes_plain`, i.e. ops/linalg.chol_solve)
 for CPU tensors.  It counts its launches in `.launches`; `chol_solve` and
-`chol_solve_best` launch through it.
+`chol_solve_best` launch through it.  The kernel has no backward pass: the
+wrapper raises for CUDA inputs that require grad while grad mode is on.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from pointfoot_tpu_torch.ops import linalg
 from pointfoot_tpu_torch.ops.cuda import build
+from pointfoot_tpu_torch.ops.cuda._grad import refuse_grad
 
 # sizes the kernel is instantiated for: PointFoot (nv 12), the quadrupeds
 # and Cassie (nv 18)
@@ -55,6 +57,7 @@ def chol_solve_lanes(A_t: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
                 not t.is_contiguous():
             raise ValueError(f"chol_solve_lanes: {name} must be contiguous "
                              f"float32 on {dev}, got {t.dtype} on {t.device}")
+    refuse_grad("chol_solve_kernel", "chol_solve_lanes_plain", A_t, b_t)
     x_t = torch.empty_like(b_t)
     lib = build.load_cholesky()
     err = lib.lib.pf_chol_solve(A_t.data_ptr(), b_t.data_ptr(),

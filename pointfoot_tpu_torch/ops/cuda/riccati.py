@@ -13,9 +13,11 @@ bytes of every row.
 `srb_lqr_lanes` is the kernel's wrapper: the kernel for CUDA tensors, the
 plain version (`srb_lqr_lanes_plain`) for CPU tensors.  It counts its
 launches in `.launches`; `srb_lqr` stages (B, ...) problems and launches
-through it.  `smem_plan` sizes a block's shared memory and decides where
-the gains K_t, d_t of the backward sweep live: in the slabs when the block
-then fits in an SM's shared memory, else in a global work space.
+through it.  The kernel has no backward pass: the wrapper raises for CUDA
+inputs that require grad while grad mode is on.  `smem_plan` sizes a
+block's shared memory and decides where the gains K_t, d_t of the backward
+sweep live: in the slabs when the block then fits in an SM's shared
+memory, else in a global work space.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 
 from pointfoot_tpu_torch.ops import linalg
 from pointfoot_tpu_torch.ops.cuda import build
+from pointfoot_tpu_torch.ops.cuda._grad import refuse_grad
 
 N_STATE = 12
 # input sizes the kernel is instantiated for: PointFoot and Cassie (two
@@ -164,6 +167,7 @@ def srb_lqr_lanes(F_t, c_t, L_t, Xd_t, Ud_t, XTd_t, x0_t, fff_t,
             raise ValueError(f"srb_lqr_lanes: {name} must be contiguous "
                              f"float32, got {t.dtype}"
                              f"{'' if t.is_contiguous() else ', strided'}")
+    refuse_grad("srb_lqr_kernel", "srb_lqr_lanes_plain", *args)
     lib = build.load_riccati()
     if lib.lib.pf_srb_lqr_smem_bytes(m, T, int(gains_in_shared)) != nbytes:
         raise RuntimeError("srb_lqr_kernel's shared-memory layout does not "

@@ -13,15 +13,17 @@ contiguous) inside:
 
 The two substep kernels give each env a group of four lanes and a slab of
 shared memory for its working set (csrc/rowdyn.cuh, substep_group), eight
-envs a one-warp block; the sphere-xy FK kernel gives an env one thread a
-leg, a warp a leg of 32 envs; the sphere-xyz FK kernel runs one env per
-thread.
+envs a one-warp block; the two sphere FK kernels (xy from the FK rows, xyz
+from the state rows) share one walk that gives an env one thread a leg, a
+warp a leg of 32 envs.
 
 Four wrappers launch the kernels of csrc/substep.cu for CUDA tensors:
 `rollout_step` (one rollout substep), `fk_rows` (collision-sphere xyz),
 `step_rows` (one substep) and `fk_xy_rows` (collision-sphere xy).  For CPU
 tensors they run their plain versions (`..._plain`), built on
-physics/rowdyn.py.  Each wrapper counts its launches in `.launches`.
+physics/rowdyn.py.  Each wrapper counts its launches in `.launches`.  The
+kernels have no backward pass: a wrapper raises for CUDA inputs that
+require grad while grad mode is on (`_grad.refuse_grad`).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from pointfoot_tpu_torch.ops.cuda import build
+from pointfoot_tpu_torch.ops.cuda._grad import refuse_grad
 from pointfoot_tpu_torch.physics import rowdyn
 from pointfoot_tpu_torch.physics.contact import query_surface
 from pointfoot_tpu_torch.physics.model import PhysicsParams, PhysicsState
@@ -241,6 +244,8 @@ def rollout_step(mc: rowdyn.ModelConsts, state_rows: torch.Tensor,
     dev = _device("rollout_step", state_rows)
     if dev.type == "cpu":
         return rollout_step_plain(*args)
+    refuse_grad("rollout_substep_kernel", "rollout_step_plain", state_rows,
+                ctrl_rows, surf_rows)
     lib = _library(mc)
     nj, nc = mc.nj, mc.nc
     B = state_rows.shape[1]
@@ -273,6 +278,7 @@ def fk_rows(mc: rowdyn.ModelConsts, state_rows: torch.Tensor
     dev = _device("fk_rows", state_rows)
     if dev.type == "cpu":
         return fk_rows_plain(mc, state_rows)
+    refuse_grad("fk_from_state_kernel", "fk_rows_plain", state_rows)
     lib = _library(mc)
     B = state_rows.shape[1]
     _check_rows("state_rows", state_rows, _rows(state_layout(mc.nj)), B, dev)
@@ -296,6 +302,7 @@ def step_rows(mc: rowdyn.ModelConsts, in_rows: torch.Tensor,
     dev = _device("step_rows", in_rows)
     if dev.type == "cpu":
         return step_rows_plain(mc, in_rows, surf_rows, dt, gravity)
+    refuse_grad("substep_kernel", "step_rows_plain", in_rows, surf_rows)
     lib = _library(mc)
     nj, nc = mc.nj, mc.nc
     B = in_rows.shape[1]
@@ -322,6 +329,7 @@ def fk_xy_rows(mc: rowdyn.ModelConsts, rows: torch.Tensor) -> torch.Tensor:
     dev = _device("fk_xy_rows", rows)
     if dev.type == "cpu":
         return fk_xy_rows_plain(mc, rows)
+    refuse_grad("fk_contact_xy_kernel", "fk_xy_rows_plain", rows)
     lib = _library(mc)
     B = rows.shape[1]
     _check_rows("rows", rows, _rows(fk_in_layout(mc.nj)), B, dev)

@@ -217,19 +217,57 @@ def test_cholesky_staging_covers_the_lower_triangle_once(n, lanes):
     assert sorted(loaded) == [(i, j) for i in range(n) for j in range(i + 1)]
 
 
-def test_fk_xy_kernel_gives_each_warp_one_branch():
-    """The sphere-xy FK kernel runs branch w of the tree below the base in
-    warp w of its block (the branch is warp-uniform, so lanes never
-    diverge) on the folded constexpr tables, and its blocks are 32 envs of
-    PF_NBR warps."""
+@pytest.mark.parametrize("kernel, layout, width", [
+    ("fk_contact_xy_kernel", "FkInRows", 2),
+    ("fk_from_state_kernel", "StateRows", 3)])
+def test_fk_xy_kernel_gives_each_warp_one_branch(kernel, layout, width):
+    """Both sphere FK kernels run branch w of the tree below the base in
+    warp w of their block (the branch is warp-uniform, so lanes never
+    diverge) through the one walk, templated on the input rows and the
+    output width, on the folded constexpr tables; their blocks are 32 envs
+    of PF_NBR warps, and the tail block clamps its env instead of
+    returning."""
     with open(os.path.join(build.CSRC, "substep.cu")) as f:
         src = f.read()
-    body = _kernel_body(src, "fk_contact_xy_kernel")
-    assert "threadIdx.x / 32" in body and "branch_xy_of<0>(" in body
+    body = _kernel_body(src, kernel)
+    assert "threadIdx.x / 32" in body
+    assert f"branch_fk_of<{layout}, {width}, 0>(" in body
     assert "min(e, B - 1)" in body and re.search(r"\breturn\b", body) is None
-    walk = src[src.index("void branch_xy("):src.index("void branch_xy_of(")]
+    walk = src[src.index("void branch_fk("):src.index("void branch_fk_of(")]
     assert "pf_br_body(BR, n)" in walk and "pfr_" not in walk
+    assert "L::QUAT" in walk and "L::QPOS" in walk
+    assert "for (int i = 0; i < W; ++i) base[i] = rows[(L::POS + i)" in walk
     assert "constexpr int FK_THREADS = 32 * PF_NBR;" in src
+    launch = src[src.index(f"  {kernel}<<<"):]
+    assert launch.startswith(f"  {kernel}<<<fk_blocks_for(B), FK_THREADS, 0,")
+
+
+@pytest.mark.parametrize("rows, first", [
+    ("FkInRows", ("K_POS", "K_QUAT", "K_QPOS")),
+    ("StateRows", ("S_POS", "S_QUAT", "S_QPOS"))])
+def test_fk_row_layouts_match_the_wrappers(rows, first):
+    """The walk's row layouts name the rows that ops/cuda/substep.py packs:
+    base_pos, base_quat and the first qpos row of `fk_in_layout` (the xy
+    kernel) and of `state_layout` (the xyz kernel); the per-thread FK of
+    the parent design (sphere_world, forward_kinematics) is gone, so two
+    forms of sphere FK remain."""
+    with open(os.path.join(build.CSRC, "substep.cu")) as f:
+        src = f.read()
+    with open(os.path.join(build.CSRC, "rowdyn.cuh")) as f:
+        body = f.read()
+    assert f"using {rows} = PoseRows<{', '.join(first)}>;" in src
+    layout = sp.fk_in_layout(6) if rows == "FkInRows" else sp.state_layout(6)
+    offsets, o = {}, 0
+    for name, cnt in layout:
+        offsets[name] = o
+        o += cnt
+    want = [offsets["base_pos"], offsets["base_quat"], offsets["qpos"]]
+    got = [int(re.search(rf"\b{name} = (\d+)", src).group(1))
+           for name in first]
+    assert got == want
+    for gone in ("sphere_world(", "forward_kinematics(",
+                 "blocks_for(B), THREADS"):
+        assert gone not in src + body, gone
 
 
 def test_typed_entry_points_are_defined_in_the_sources():
@@ -250,8 +288,8 @@ def test_typed_entry_points_are_defined_in_the_sources():
                                       re.M))
     assert {"pf_chol_solve", "pf_chol_lanes", "pf_chol_smem_bytes",
             "pf_chol_resident_warps", "pf_substep_resident_warps",
-            "pf_fk_xy_resident_warps",
-            "pf_fk_contact_xy"} <= typed
+            "pf_fk_xy_resident_warps", "pf_fk_xyz_resident_warps",
+            "pf_fk_contact_xy", "pf_fk_from_state"} <= typed
     assert typed <= defined, typed - defined
 
 

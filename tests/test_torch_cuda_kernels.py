@@ -104,13 +104,43 @@ def test_rollout_step_kernel_matches_plain_on_ragged_batches(rows, num):
                                atol=5e-5, rtol=0)
 
 
-def test_fk_kernel_matches_plain(rows):
-    mc, (state, _, _) = rows
+@pytest.fixture(scope="module",
+                params=["pointfoot", "anymal_c", "a1", "cassie"])
+def fk_state(request):
+    """Rollout state rows of B envs of one robot: random poses, bases far
+    from the origin as well as near it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mc = sp.model_consts(get_model(request.param))
+    nj = mc.nj
+    rng = np.random.default_rng(3)
+
+    def r(n, s, o=0.0):
+        return o + s * rng.standard_normal((n, B))
+
+    q = r(4, 0.3)
+    q[3] += 1.0
+    q /= np.linalg.norm(q, axis=0)
+    state = np.concatenate([r(2, 30.0), 0.5 + r(1, 0.1), q, r(6, 0.8),
+                            r(nj, 0.6), r(2 * nj, 1.5)])
+    return mc, torch.tensor(state, dtype=torch.float32, device="cuda")
+
+
+@pytest.mark.parametrize("num", [B, *RAGGED])
+def test_fk_kernel_matches_plain(fk_state, num):
+    """Bit-identical to the plain version (the same operations in the same
+    order, -fmad=false), and across two launches; 1 and 4099 envs leave the
+    last block with idle groups."""
+    mc, state = fk_state
+    state = _columns(state, num)
     before = sp.fk_rows.launches
     got = sp.fk_rows(mc, state)
     assert sp.fk_rows.launches == before + 1
-    torch.testing.assert_close(got, sp.fk_rows_plain(mc, state), atol=2e-5,
-                               rtol=0)
+    again = sp.fk_rows(mc, state)
+    want = sp.fk_rows_plain(mc, state)
+    torch.cuda.synchronize()
+    assert got.shape == (3 * mc.nc, num)
+    assert torch.equal(got, want) and torch.equal(got, again)
 
 
 def test_wrapper_rejects_bad_rows(rows):
@@ -199,7 +229,7 @@ def test_substep_kernel_matches_plain_on_ragged_batches(substep_rows, num):
 
 def test_substep_kernels_fit_an_sm(substep_rows):
     """The block's slabs fit in shared memory, and an SM holds a warp of
-    each kernel (the sphere-xy FK kernel's too)."""
+    each kernel (the two sphere FK kernels' too)."""
     from pointfoot_tpu_torch.ops.cuda import build
 
     lib = build.load(substep_rows[0])
@@ -207,13 +237,14 @@ def test_substep_kernels_fit_an_sm(substep_rows):
     assert lib.lib.pf_substep_resident_warps(0) >= 1
     assert lib.lib.pf_substep_resident_warps(1) >= 1
     assert lib.lib.pf_fk_xy_resident_warps() >= 1
+    assert lib.lib.pf_fk_xyz_resident_warps() >= 1
 
 
 @pytest.mark.parametrize("num", [B, *RAGGED])
 def test_fk_xy_kernel_matches_plain(substep_rows, num):
-    """Within 2e-5 m of the plain version (bit-identical on the card so
-    far); 1 and 4099 envs leave the last block with idle groups, and two
-    launches agree bit for bit."""
+    """Bit-identical to the plain version, as the xyz kernel that shares
+    its walk; 1 and 4099 envs leave the last block with idle groups, and
+    two launches agree bit for bit."""
     mc, (rows, _) = substep_rows
     fk_in = _columns(torch.cat([rows[:7], rows[13:13 + mc.nj]]), num)
     before = sp.fk_xy_rows.launches
@@ -223,7 +254,7 @@ def test_fk_xy_kernel_matches_plain(substep_rows, num):
     want = sp.fk_xy_rows_plain(mc, fk_in)
     torch.cuda.synchronize()
     assert got.shape == (2 * mc.nc, num) and torch.equal(got, again)
-    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("num", [1, B, 2048, 4099])
@@ -334,3 +365,76 @@ def test_srb_lqr_wrapper_rejects_what_the_kernel_does_not_take():
         riccati.srb_lqr_lanes(staged[0].t().contiguous().t(), *staged[1:], 4)
     with pytest.raises(ValueError, match="different devices"):
         riccati.srb_lqr_lanes(staged[0].cpu(), *staged[1:], 4)
+
+
+# ------------------------------------------- forward-only, as the TPU's
+
+def _grad_cases():
+    """(wrapper, a call of it with one input scaled by g) for each of the
+    six wrappers, on CUDA inputs of the fixtures' kinds."""
+    from pointfoot_tpu_torch.ops.cuda import cholesky, riccati
+
+    dev = torch.device("cuda")
+    mc = sp.model_consts(get_model("pointfoot"))
+    nj, nc = mc.nj, mc.nc
+    rng = np.random.default_rng(4)
+    num = 64
+
+    def rand(rows):
+        return torch.tensor(rng.standard_normal((rows, num)),
+                            dtype=torch.float32, device=dev)
+
+    state = rand(sp._rows(sp.state_layout(nj)))
+    state[3:7] = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)[:, None]
+    ctrl = rand(sp._rows(sp.ctrl_layout(nj, nc)))
+    sub_in = torch.cat([state[:13 + 2 * nj],
+                        rand(sp._rows(sp.substep_in_layout(nj, nc))
+                             - 13 - 2 * nj)])
+    fk_in = torch.cat([state[:7], state[13:13 + nj]])
+    M = torch.randn(num, 12, 12, device=dev)
+    A = M @ M.transpose(1, 2) + 12 * torch.eye(12, device=dev)
+    A_t = A.reshape(num, 144).t().contiguous()
+    b_t = rand(12)
+    staged = riccati.stage(*(torch.tensor(a, device=dev)
+                             for a in srb_lqr_problem(num, 6, 0)))
+    qdef = (0.0,) * nj
+    return {
+        "rollout_step": (sp.rollout_step, lambda g: sp.rollout_step(
+            mc, state, (ctrl * g).contiguous(), None, True, qdef, 0.5, "P",
+            0.005, 9.81)),
+        "fk_rows": (sp.fk_rows,
+                    lambda g: sp.fk_rows(mc, (state * g).contiguous())),
+        "step_rows": (sp.step_rows, lambda g: sp.step_rows(
+            mc, (sub_in * g).contiguous(), None, 0.005, 9.81)),
+        "fk_xy_rows": (sp.fk_xy_rows, lambda g: sp.fk_xy_rows(
+            mc, (fk_in * g).contiguous())),
+        "chol_solve_lanes": (cholesky.chol_solve_lanes,
+                             lambda g: cholesky.chol_solve_lanes(
+                                 A_t, (b_t * g).contiguous())),
+        "srb_lqr_lanes": (riccati.srb_lqr_lanes,
+                          lambda g: riccati.srb_lqr_lanes(
+                              (staged[0] * g).contiguous(), *staged[1:], 4)),
+    }
+
+
+@pytest.mark.parametrize("name", ["rollout_step", "fk_rows", "step_rows",
+                                  "fk_xy_rows", "chol_solve_lanes",
+                                  "srb_lqr_lanes"])
+def test_wrapper_refuses_grad_and_runs_under_no_grad(name):
+    """A CUDA input that requires grad raises (the kernel has no backward
+    pass, as its TPU kernel has none) and launches nothing; under no_grad
+    the same call launches the kernel once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    wrapper, call = _grad_cases()[name]
+    g = torch.ones(1, device="cuda", requires_grad=True)
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="has no backward pass"):
+        call(g)
+    assert wrapper.launches == before
+    with torch.no_grad():
+        out = call(g)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    first = out[0] if isinstance(out, tuple) else out
+    assert first.grad_fn is None and not first.requires_grad
