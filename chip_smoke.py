@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths at full width: the policy rollout of
+Drives the port's four main paths at full width: the policy rollout of
 pointfoot_rough (fused rollout kernels) and the actuator-net task
 anymal_c_rough (physics/dynamics.step_batched and its kernels), both on
-procedural terrain at 4096 envs, and the SRB-MPC tick of PointFoot at 4096
-scenarios (the fused SRB-LQR kernel).
+procedural terrain at 4096 envs, the SRB-MPC tick of PointFoot at 4096
+scenarios (the fused SRB-LQR kernel), and PPO training of pointfoot_rough
+at 4096 envs (its rollouts through the fused rollout kernels).
 
 1. device and build: the card's name and power limit; the PointFoot,
    ANYmal, A1, Cholesky and Riccati libraries of pointfoot_tpu_torch/csrc/
@@ -62,7 +63,20 @@ scenarios (the fused SRB-LQR kernel).
 9. the closed-loop gate: 4096 A1 scenarios on flat ground, a lateral
    0.3 m/s perturbation, 50 ticks of the kernel tick with 4 substeps of
    leg_torques and dynamics.step_batched each: every base stays above
-   0.2 m, upright, and comes to rest.
+   0.2 m, upright, and comes to rest;
+10. PPO training of pointfoot_rough on procedural terrain at 4096 envs
+   through rl/runner.OnPolicyRunner.train_iteration, fresh from seed 0,
+   the registry's PPO config (512/256/128, 24 steps an iteration, 5 x 4
+   minibatches): two warm iterations, then three timed ones, env-steps/s
+   including the update and the seconds of rollout and update of each;
+   the launch counters around one iteration (rollout substep kernel 4 x 24,
+   sphere-xyz FK 24, the other kernels 0); after every iteration finite
+   parameters, Adam moments and metrics, the learning rate in [min_lr,
+   max_lr], exp(log_std) within the noise rails and 20 more updates; and
+   the card's PPO update held to the CPU's on the first 256 envs of a card
+   rollout, from the same parameters, Adam state and permutations: the
+   first minibatch's gradients, every minibatch's losses and KL, the
+   learning rates, and the final parameters and Adam moments.
 
 The line before the last holds the kernels' JSON record, the one before it
 the card's name and power limit, and the last line is the JSON
@@ -94,8 +108,10 @@ from pointfoot_tpu_torch.physics import dynamics
 from pointfoot_tpu_torch.physics.assets import get_model
 from pointfoot_tpu_torch.physics.contact import query_surface
 from pointfoot_tpu_torch.physics.model import PhysicsParams, PhysicsState
+from pointfoot_tpu_torch.rl.networks import ActorCritic
+from pointfoot_tpu_torch.rl.ppo import PPO, Transition, compute_gae
 from pointfoot_tpu_torch.utils import policy_eval
-from pointfoot_tpu_torch.utils.registry import make_env
+from pointfoot_tpu_torch.utils.registry import make_alg_runner, make_env
 
 NUM_ENVS = 4096
 CHOL_ENVS = 2048
@@ -147,6 +163,16 @@ SRB_GATE_CFG = dict(height_target=0.28, w_vel=1.0, w_height=10.0,
                     w_orient=5.0, w_omega=0.5, w_force_normal=1e-3,
                     w_force_tangent=2e-2, kp_swing=20.0, kd_swing=0.5)
 SRB_GATE_TICKS, SRB_GATE_SUBSTEPS, SRB_GATE_DT = 50, 4, 0.005
+TRAIN_WARM, TRAIN_TIMED = 2, 3  # iterations
+TRAIN_CHECK_ENVS = 256  # envs of a card rollout whose update the CPU redoes
+# tests/test_torch_ppo.py: losses, KL and gradients (rtol, and atol scaled
+# by the tensor's largest entry for gradients)
+PPO_RTOL, PPO_ATOL = 1e-5, 1e-6
+# Adam moments after the 20 steps: rtol 1e-4, atol 1e-5 of the tensor's
+# largest entry, since each moment is a running mean of 20 gradients whose
+# roundoff, each within PPO_RTOL, does not cancel (an H100 against the
+# CPU: 3.2e-6 of the largest entry, exp_avg of the actor's first kernel)
+ADAM_RTOL, ADAM_ATOL = 1e-4, 1e-5
 
 
 def log(*args):
@@ -1129,6 +1155,189 @@ def srb_gate(a1_model):
                              f"{rec}")
 
 
+# ------------------------------------------ 10. PPO training, 4096 envs
+
+def check_train_state(runner, count0: int, metrics: dict, what: str):
+    alg = runner.cfg.algorithm
+    ppo = runner.ppo
+    for name, p in runner.network.named_parameters():
+        st = ppo.optimizer.state[p]
+        for t, label in ((p, "parameter"), (st["exp_avg"], "exp_avg"),
+                         (st["exp_avg_sq"], "exp_avg_sq")):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{what}: non-finite {label} {name}")
+    for k, v in metrics.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{what}: non-finite metric {k}: {v}")
+    f32 = np.float32
+    if not f32(alg.min_lr) <= ppo.learning_rate <= f32(alg.max_lr):
+        raise AssertionError(f"{what}: learning rate {ppo.learning_rate} "
+                             f"outside [{alg.min_lr}, {alg.max_lr}]")
+    # log_std is clamped to float32 logs of the rails: 1e-6 of slack
+    std = torch.exp(runner.network.log_std.detach().double())
+    if not (bool((std >= alg.min_noise_std * (1 - 1e-6)).all())
+            and bool((std <= alg.max_noise_std * (1 + 1e-6)).all())):
+        raise AssertionError(f"{what}: noise std {std.tolist()} outside "
+                             f"[{alg.min_noise_std}, {alg.max_noise_std}]")
+    steps = alg.num_learning_epochs * alg.num_mini_batches
+    if ppo.update_count != count0 + steps:
+        raise AssertionError(f"{what}: update count {ppo.update_count}, "
+                             f"expected {count0 + steps}")
+
+
+def update_card_vs_cpu(runner, rollout: Transition, last_value):
+    """The PPO update of the first TRAIN_CHECK_ENVS envs of a card rollout
+    on the card and on the CPU, from the runner's parameters and Adam state,
+    with the same permutations."""
+    env, tc = runner.env, runner.cfg
+    alg = tc.algorithm
+    n = TRAIN_CHECK_ENVS
+    sub = Transition(*(x[:, :n].contiguous() for x in rollout))
+    last = last_value[:n]
+    T = sub.reward.shape[0]
+    g = torch.Generator().manual_seed(5)
+    perms = [torch.randperm(T * n, generator=g)
+             for _ in range(alg.num_learning_epochs)]
+    mb = T * n // alg.num_mini_batches
+    state = runner.ppo.state_dict()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = tc.policy
+        net = ActorCritic(env.num_obs, env.num_privileged_obs or env.num_obs,
+                          env.num_actions, p.actor_hidden_dims,
+                          p.critic_hidden_dims, p.activation,
+                          p.init_noise_std).to(dev)
+        ppo = PPO(net, alg)
+        ppo.load_state_dict(state)
+        roll = Transition(*(x.to(dev) for x in sub))
+        adv, ret = compute_gae(roll.reward, roll.done, roll.time_out,
+                               roll.value, last.to(dev), alg.gamma, alg.lam)
+        flat = Transition(*(x.reshape((T * n,) + x.shape[2:])
+                            for x in roll))
+        idx = perms[0][:mb].to(dev)
+        ppo.loss_and_grad(Transition(*(x[idx] for x in flat)),
+                          adv.reshape(-1)[idx], ret.reshape(-1)[idx])
+        grads = {k: q.grad.detach().cpu().clone()
+                 for k, q in net.named_parameters()}
+        t0 = time.perf_counter()
+        ppo.update(roll, last.to(dev), perms)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = (grads, ppo, time.perf_counter() - t0)
+    (g_card, card, s_card), (g_cpu, cpu, s_cpu) = out["cuda"], out["cpu"]
+    for k, want in g_cpu.items():
+        check_close(g_card[k], want, PPO_RTOL,
+                    PPO_ATOL * float(want.abs().max()),
+                    f"first minibatch gradient {k}, card vs CPU")
+    for k in ("surrogate_loss", "value_loss", "entropy", "kl"):
+        check_close(card.minibatch_metrics[k].cpu(),
+                    cpu.minibatch_metrics[k], PPO_RTOL, PPO_ATOL,
+                    f"minibatch {k}, card vs CPU")
+    # the rates are equal while no KL sits within the KL tolerance of a
+    # threshold of the adaptive rule; after one, the two may branch apart
+    kl = cpu.minibatch_metrics["kl"].double()
+    dkl = alg.desired_kl
+    near = torch.zeros_like(kl, dtype=torch.bool)
+    for edge in (2.0 * dkl, dkl / 2.0):
+        near |= (kl - edge).abs() <= PPO_RTOL * edge + PPO_ATOL
+    upto = (int(near.nonzero()[0]) + 1 if bool(near.any())
+            else len(kl))
+    lr_card = card.minibatch_metrics["lr_intra"].cpu()
+    lr_cpu = cpu.minibatch_metrics["lr_intra"]
+    if not torch.equal(lr_card[:upto], lr_cpu[:upto]):
+        raise AssertionError(f"learning rates differ: card "
+                             f"{lr_card.tolist()}, CPU {lr_cpu.tolist()}")
+    # Adam steps roundoff-level gradients by about lr * sign(g): an entry
+    # may end up as far apart as both sides' rates add up to, 2 * (sum of
+    # the rates) while they agree (tests/test_torch_ppo.py)
+    bound = float(lr_card.double().sum() + lr_cpu.double().sum()) + 1e-6
+    worst, loose, moment = 0.0, 0, 0.0
+    sc, sp = card.state_dict(), cpu.state_dict()
+    for k, want in sp["params"].items():
+        err = (sc["params"][k].cpu() - want).abs()
+        worst = max(worst, float(err.max()))
+        loose += int((err > 1e-6).sum())
+        if float(err.max()) > bound:
+            raise AssertionError(f"final {k}: card vs CPU {float(err.max())}"
+                                 f" > Adam bound {bound}")
+        for m in ("exp_avg", "exp_avg_sq"):
+            w = sp["adam"][k][m]
+            scale = float(w.abs().max())
+            got = sc["adam"][k][m].cpu()
+            moment = max(moment, max_err(got, w) / max(scale, 1e-30))
+            check_close(got, w, ADAM_RTOL, ADAM_ATOL * scale,
+                        f"final {m} {k}, card vs CPU")
+    nparams = sum(v.numel() for v in sp["params"].values())
+    log(f"[train-check] {n} envs x {T} steps, update on the card "
+        f"{s_card:.3f} s, on the CPU {s_cpu:.3f} s: gradients, losses and "
+        f"KL of 20 minibatches within rtol {PPO_RTOL}; learning rates equal "
+        f"over {upto} of {len(kl)} minibatches; final params max abs "
+        f"{worst:.3e} (Adam bound {bound:.3e}), {loose} of {nparams} "
+        f"entries beyond 1e-6; Adam moments max abs error "
+        f"{moment:.3e} of their tensor's largest entry")
+
+
+def train_phase():
+    """PPO training of pointfoot_rough at full width (phase 10)."""
+    env = make_env("pointfoot_rough", num_envs=NUM_ENVS,
+                   cfg_patch=policy_eval.FLAGSHIP_PATCH)
+    runner = make_alg_runner(env, "pointfoot_rough")
+    T = runner.cfg.runner.num_steps_per_env
+    es = runner.init(0)
+    es, out = env.step(es, torch.zeros(NUM_ENVS, env.num_actions,
+                                       device=env.device))
+    obs, priv = out.obs, out.privileged_obs
+    # time the rollout inside train_iteration: a synchronising wrapper
+    # (the update waits on the rollout at its first KL read anyway)
+    marks = []
+    rollout = runner.rollout
+
+    def timed_rollout(*args, **kwargs):
+        result = rollout(*args, **kwargs)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return result
+
+    runner.rollout = timed_rollout
+    timed, launches = [], None
+    for i in range(TRAIN_WARM + TRAIN_TIMED):
+        count0 = runner.ppo.update_count
+        torch.cuda.synchronize()
+        if i == TRAIN_WARM:
+            reset_counts()
+        t0 = time.perf_counter()
+        es, obs, priv, metrics = runner.train_iteration(es, obs, priv)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if i == TRAIN_WARM:
+            launches = read_counts()
+            expect_counts(launches,
+                          rollout_substep=env.cfg.control.decimation * T,
+                          fk_from_state=T)
+        check_train_state(runner, count0, metrics, f"train iteration {i}")
+        if i >= TRAIN_WARM:
+            timed.append((t2 - t0, marks[-1] - t0, t2 - marks[-1]))
+    runner.rollout = rollout
+    steps = T * NUM_ENVS
+    total = sum(t[0] for t in timed)
+    m = {k: round(float(metrics[k]), 6) for k in (
+        "kl", "learning_rate", "lr_intra", "noise_std", "value_loss",
+        "surrogate_loss", "mean_reward")}
+    m["lr"] = m.pop("learning_rate")
+    log(f"[train] pointfoot_rough PPO, {NUM_ENVS} envs x {T} steps, "
+        f"{TRAIN_TIMED} iterations after {TRAIN_WARM} warm in {total:.2f} s: "
+        f"{TRAIN_TIMED * steps / total:.0f} env-steps/s including the "
+        f"update; iteration s {[round(t[0], 4) for t in timed]}, rollout s "
+        f"{[round(t[1], 4) for t in timed]}, update s "
+        f"{[round(t[2], 4) for t in timed]}; launches in one iteration "
+        f"{launches}; last iteration {json.dumps(m)}")
+
+    es, obs, priv, roll, _ = runner.rollout(es, obs, priv)
+    with torch.no_grad():
+        last_value = runner.network.value(priv)
+    update_card_vs_cpu(runner, roll, last_value)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1169,6 +1378,8 @@ def main() -> int:
     lqr = riccati_kernels(pf_ctrl, a1_ctrl)
     mpc_launches = mpc_tick(pf_ctrl, lqr["ms"])
     srb_gate(a1_model)
+    log(f"[t] MPC paths done at {time.perf_counter() - t_start:.1f} s")
+    train_phase()
 
     kernels = [
         kernel_record("rollout_substep_kernel", SUBSTEP_SRC,

@@ -1,20 +1,35 @@
-"""Benchmark of the SRB-MPC tick (the `main_mpc` of the JAX package's
-bench.py).
+"""Benchmarks of the port (the `main_mpc` and `main_train` of the JAX
+package's bench.py).
 
+    python -m pointfoot_tpu_torch.bench --mode train
     python -m pointfoot_tpu_torch.bench --mode mpc
     python -m pointfoot_tpu_torch.bench --mode mpc --solver plain
     python -m pointfoot_tpu_torch.bench --mode mpc --device cpu --num_envs 8
 
-Prints ONE JSON line {"metric", "value", "unit", "vs_baseline",
-"conditions"}.  One tick = the batched Riccati re-plan and the leg-torque
+Each prints ONE JSON line {"metric", "value", "unit", "vs_baseline",
+"conditions"}; the value is the median of `--reps` repetitions of `--iters`
+iterations after a warm-up, timed by the host clock ending in
+`torch.cuda.synchronize`, and the conditions name the card.
+
+`--mode train`: PPO training of pointfoot_rough on procedural terrain at
+`--num_envs` envs (4096), fresh from seed 0, with the registry's PPO config
+(24 steps an iteration, 5 x 4 minibatches).  Two warm iterations, then
+env-steps/s including the update (default 1 iteration a repetition);
+vs_baseline = env-steps/s over real time, num_envs x 50 Hz.  The
+conditions also give the seconds of one iteration's rollout and update,
+timed apart on one more iteration.
+
+`--mode mpc`: one tick = the batched Riccati re-plan and the leg-torque
 mapping of every scenario: PointFoot, `--num_envs` scenarios (4096),
-SRBConfig() (horizon 12), default pose at 0.62 m, zero commands.  The value
-is scenario-solves/s, the median of `--reps` repetitions of `--iters` ticks
-after a warm-up tick; vs_baseline = solves/s over real time, num_envs x
-50 Hz.  `--solver kernel` (default) plans with the fused SRB-LQR kernel
+SRBConfig() (horizon 12), default pose at 0.62 m, zero commands; the value
+is scenario-solves/s (default 20 ticks a repetition, after a warm-up tick);
+vs_baseline = solves/s over real time, num_envs x 50 Hz.  `--solver
+kernel` (default) plans with the fused SRB-LQR kernel
 (`SRBController.plan_tick_cuda`), `--solver plain` with the sequential
-Riccati recursion (`plan_tick`).  Runs on the GPU unless --device names
-another.  The other modes of bench.py are not ported yet.
+Riccati recursion (`plan_tick`).
+
+Runs on the GPU unless --device names another.  The other modes of the
+JAX package's bench.py are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,9 +46,12 @@ from pointfoot_tpu_torch.device import resolve_device
 from pointfoot_tpu_torch.mpc.srb import SRBConfig, SRBController
 from pointfoot_tpu_torch.physics.assets import get_model
 from pointfoot_tpu_torch.physics.model import PhysicsParams, PhysicsState
+from pointfoot_tpu_torch.utils.policy_eval import FLAGSHIP_PATCH
+from pointfoot_tpu_torch.utils.registry import make_alg_runner, make_env
 
 MODES = ("env", "mpc", "mpc_ilqr", "actuator_net", "train")
 SOLVERS = ("kernel", "plain")
+ITERS = {"mpc": 20, "train": 1}  # --iters by mode
 
 
 def card_line(device: torch.device) -> str:
@@ -61,6 +79,11 @@ def make_mpc(num_envs: int, device: torch.device):
     return ctrl, phys, cmd
 
 
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def main_mpc(num_envs: int = 4096, iters: int = 20, reps: int = 3,
              solver: str = "kernel", device=None) -> dict:
     """Time the tick and return (and print) the benchmark's record."""
@@ -69,13 +92,8 @@ def main_mpc(num_envs: int = 4096, iters: int = 20, reps: int = 3,
     device = resolve_device(device)
     ctrl, phys, cmd = make_mpc(num_envs, device)
     tick = ctrl.plan_tick_cuda if solver == "kernel" else ctrl.plan_tick
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
     tau, _ = tick(phys, cmd)
-    sync()
+    _sync(device)
     if not bool(torch.isfinite(tau).all()):
         raise RuntimeError("SRB-MPC tick returned non-finite torques")
     rates = []
@@ -83,7 +101,7 @@ def main_mpc(num_envs: int = 4096, iters: int = 20, reps: int = 3,
         t0 = time.perf_counter()
         for _ in range(iters):
             tau, _ = tick(phys, cmd)
-        sync()
+        _sync(device)
         dt = (time.perf_counter() - t0) / iters
         rates.append(num_envs / dt)
     solves_per_sec = sorted(rates)[len(rates) // 2]
@@ -103,21 +121,77 @@ def main_mpc(num_envs: int = 4096, iters: int = 20, reps: int = 3,
     return record
 
 
+def main_train(num_envs: int = 4096, iters: int = 1, reps: int = 3,
+               device=None) -> dict:
+    """Time PPO training iterations and return (and print) the record."""
+    device = resolve_device(device)
+    task = "pointfoot_rough"
+    env = make_env(task, num_envs=num_envs, device=device,
+                   cfg_patch=FLAGSHIP_PATCH)
+    runner = make_alg_runner(env, task)
+    es = runner.init(0)
+    es, out = env.step(es, torch.zeros(num_envs, env.num_actions,
+                                       device=device))
+    obs, priv = out.obs, out.privileged_obs
+    for _ in range(2):
+        es, obs, priv, metrics = runner.train_iteration(es, obs, priv)
+    _sync(device)
+    steps = runner.cfg.runner.num_steps_per_env * num_envs
+    rates = []
+    for _ in range(max(reps, 1)):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            es, obs, priv, metrics = runner.train_iteration(es, obs, priv)
+        _sync(device)
+        rates.append(steps * iters / (time.perf_counter() - t0))
+    # one more iteration, its rollout and update timed apart
+    t0 = time.perf_counter()
+    es, obs, priv, rollout, _ = runner.rollout(es, obs, priv)
+    _sync(device)
+    t1 = time.perf_counter()
+    metrics = runner.update(rollout, obs, priv)
+    _sync(device)
+    t2 = time.perf_counter()
+    if not all(bool(torch.isfinite(v).all()) for v in metrics.values()):
+        raise RuntimeError(f"PPO update returned non-finite metrics: "
+                           f"{ {k: v.tolist() for k, v in metrics.items()} }")
+    sps = sorted(rates)[len(rates) // 2]
+    record = {
+        "metric": f"train_env_steps_per_sec@{num_envs}envs_pointfoot_rough",
+        "value": round(sps, 1),
+        "unit": "steps/s",
+        "vs_baseline": round(sps / (num_envs * 50.0), 4),
+        "conditions": {"iters": iters,
+                       "reps_steps_per_sec": [round(r, 1) for r in rates],
+                       "rollout_s": round(t1 - t0, 4),
+                       "update_s": round(t2 - t1, 4),
+                       "num_steps_per_env":
+                           runner.cfg.runner.num_steps_per_env,
+                       "card": card_line(device)},
+    }
+    print(json.dumps(record), flush=True)
+    return record
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", choices=MODES, default="env")
     ap.add_argument("--num_envs", type=int, default=4096)
-    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--iters", type=int, default=None,
+                    help=f"iterations a repetition (default {ITERS})")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--solver", choices=SOLVERS, default="kernel")
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
-    if args.mode != "mpc":
+    if args.mode not in ITERS:
         raise NotImplementedError(
             f"bench mode '{args.mode}' is not ported yet (ROADMAP §1, "
             f"\"The rest\": a GPU bench for the other modes of bench.py); "
-            f"only --mode mpc runs")
-    return main_mpc(args.num_envs, args.iters, args.reps, args.solver,
+            f"--mode {' and --mode '.join(ITERS)} run")
+    iters = ITERS[args.mode] if args.iters is None else args.iters
+    if args.mode == "train":
+        return main_train(args.num_envs, iters, args.reps, args.device)
+    return main_mpc(args.num_envs, iters, args.reps, args.solver,
                     args.device)
 
 

@@ -5,8 +5,8 @@ variant).  Reward scales are a tuple of (name, scale); only non-zero
 entries select reward terms.  Only the fields the ported slices read are
 here; the JAX package's other knobs (command curriculum, low-command
 oversampling, alternative promotion/demotion rules, relative tracking
-width, PPO and runner settings, ...) arrive with the slices that implement
-them.
+width, ...) arrive with the slices that implement them.  The training
+config (policy, PPO algorithm, runner) is whole.
 """
 
 from __future__ import annotations
@@ -164,21 +164,77 @@ class LeggedEnvCfg:
         return int(self.env.episode_length_s / self.dt + 0.5)
 
 
+# ---------------- PPO / training config (rsl_rl replacement) ----------------
+
+
 @dataclass(frozen=True)
 class PolicyCfg:
+    """legged_robot_config.py:220-228."""
+
     init_noise_std: float = 1.0
     actor_hidden_dims: Tuple[int, ...] = (512, 256, 128)
     critic_hidden_dims: Tuple[int, ...] = (512, 256, 128)
     activation: str = "elu"
+    # the recurrent variant (ActorCriticRecurrent), not ported yet: read by
+    # nothing in this package
+    rnn_type: str = ""
+    rnn_hidden_size: int = 256
+    rnn_num_layers: int = 1
+
+
+@dataclass(frozen=True)
+class AlgorithmCfg:
+    """legged_robot_config.py:230-243, with the JAX package's rails."""
+
+    value_loss_coef: float = 1.0
+    use_clipped_value_loss: bool = True
+    clip_param: float = 0.2
+    entropy_coef: float = 0.01
+    num_learning_epochs: int = 5
+    num_mini_batches: int = 4
+    learning_rate: float = 1e-3
+    schedule: str = "adaptive"  # adaptive KL targeting
+    gamma: float = 0.99
+    lam: float = 0.95
+    desired_kl: float = 0.01
+    max_grad_norm: float = 1.0
+    # the adaptive-LR corridor: the x1.5-per-minibatch growth is capped at
+    # max_lr (rsl_rl's 1e-2 let a perturbed policy be destroyed within an
+    # iteration at 4096 envs) and the /1.5 shrink floored at min_lr
+    max_lr: float = 1e-3
+    min_lr: float = 1e-5
+    # exploration-noise rails: log_std is projected into
+    # [log min_noise_std, log max_noise_std] after every SGD step, so the
+    # entropy bonus alone cannot inflate the noise when every advantage is 0
+    max_noise_std: float = 1.5
+    min_noise_std: float = 0.01
+    # Winsorized KL for the adaptive-LR rule: when > 0, each sample's KL is
+    # capped at this value before the mean (0 = the plain rsl_rl mean), so
+    # a few rogue samples cannot rail the learning rate
+    kl_winsor: float = 0.0
+
+
+@dataclass(frozen=True)
+class RunnerCfg:
+    """legged_robot_config.py:245-258."""
+
+    num_steps_per_env: int = 24
+    max_iterations: int = 1500
+    save_interval: int = 100
+    experiment_name: str = "pointfoot_rough"
+    run_name: str = ""
+    resume: bool = False
+    load_run: str = ""
+    checkpoint: str = ""
+    policy_class_name: str = "ActorCritic"
 
 
 @dataclass(frozen=True)
 class TrainCfg:
-    """The policy half of the training config; the PPO algorithm and
-    runner settings come with the training slice of the port."""
-
     seed: int = 1
     policy: PolicyCfg = PolicyCfg()
+    algorithm: AlgorithmCfg = AlgorithmCfg()
+    runner: RunnerCfg = RunnerCfg()
 
 
 def override(cfg, **groups):

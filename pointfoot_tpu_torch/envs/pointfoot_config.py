@@ -2,9 +2,9 @@
 (pointfoot_tpu/envs/pointfoot_config.py)."""
 
 from pointfoot_tpu_torch.envs.config import (
-    AssetCfg, CommandsCfg, ControlCfg, DomainRandCfg, EnvCfg, HeightScanCfg,
+    AlgorithmCfg, AssetCfg, CommandsCfg, ControlCfg, DomainRandCfg, EnvCfg, HeightScanCfg,
     InitStateCfg, LeggedEnvCfg, NoiseCfg, NormalizationCfg, PolicyCfg,
-    RewardsCfg, SimCfg, TrainCfg,
+    RewardsCfg, RunnerCfg, SimCfg, TrainCfg,
 )
 from pointfoot_tpu_torch.terrain.procedural import TerrainCfg
 
@@ -92,4 +92,7 @@ POINTFOOT_ROUGH_PPO = TrainCfg(
                      actor_hidden_dims=(512, 256, 128),
                      critic_hidden_dims=(512, 256, 128),
                      activation="elu"),
+    algorithm=AlgorithmCfg(),
+    runner=RunnerCfg(num_steps_per_env=24, max_iterations=100000,
+                     save_interval=100, experiment_name="pointfoot_rough"),
 )

@@ -4,17 +4,15 @@ Cassie (pointfoot_tpu/envs/robot_configs.py).
 These tasks use `obs_style='legged'`: observations lead with the base
 linear velocity and carry the commands before the joint state, the height
 scan goes to the actor's observation, pushes set the base velocity, and the
-feet_air_time and stand_still rewards take the LeggedRobot formulas.  Only
-the policy part of each training config is here; the PPO and runner
-settings come with the training slice.
+feet_air_time and stand_still rewards take the LeggedRobot formulas.
 """
 
 from dataclasses import replace
 
 from pointfoot_tpu_torch.envs.config import (
-    AssetCfg, CommandsCfg, ControlCfg, DomainRandCfg, EnvCfg, HeightScanCfg,
-    InitStateCfg, LeggedEnvCfg, NoiseCfg, NormalizationCfg, PolicyCfg,
-    RewardsCfg, SimCfg, TrainCfg, override,
+    AlgorithmCfg, AssetCfg, CommandsCfg, ControlCfg, DomainRandCfg, EnvCfg,
+    HeightScanCfg, InitStateCfg, LeggedEnvCfg, NoiseCfg, NormalizationCfg,
+    PolicyCfg, RewardsCfg, RunnerCfg, SimCfg, TrainCfg, override,
 )
 from pointfoot_tpu_torch.terrain.procedural import TerrainCfg
 
@@ -185,20 +183,26 @@ CASSIE_CFG = LeggedEnvCfg(
     obs_style="legged",
 )
 
-_LR_PPO = TrainCfg(policy=PolicyCfg())
+_LR_PPO = TrainCfg(
+    policy=PolicyCfg(), algorithm=AlgorithmCfg(),
+    runner=RunnerCfg(max_iterations=1500, experiment_name="legged"),
+)
 
 
-def _ppo(small: bool = False) -> TrainCfg:
+def _ppo(name: str, max_iterations: int = 1500,
+         small: bool = False) -> TrainCfg:
     p = (PolicyCfg(actor_hidden_dims=(128, 64, 32),
                    critic_hidden_dims=(128, 64, 32)) if small
          else PolicyCfg())
-    return replace(_LR_PPO, policy=p)
+    return replace(_LR_PPO, policy=p,
+                   runner=replace(_LR_PPO.runner, experiment_name=name,
+                                  max_iterations=max_iterations))
 
 
 TASKS = {
-    "anymal_c_rough": (ANYMAL_C_ROUGH_CFG, _ppo()),
-    "anymal_c_flat": (ANYMAL_C_FLAT_CFG, _ppo(small=True)),
-    "anymal_b": (ANYMAL_B_CFG, _ppo()),
-    "a1": (A1_CFG, _ppo()),
-    "cassie": (CASSIE_CFG, _ppo()),
+    "anymal_c_rough": (ANYMAL_C_ROUGH_CFG, _ppo("rough_anymal_c")),
+    "anymal_c_flat": (ANYMAL_C_FLAT_CFG, _ppo("flat_anymal_c", 300, True)),
+    "anymal_b": (ANYMAL_B_CFG, _ppo("rough_anymal_b")),
+    "a1": (A1_CFG, _ppo("rough_a1")),
+    "cassie": (CASSIE_CFG, _ppo("rough_cassie")),
 }

@@ -1,0 +1,321 @@
+"""On-policy training runner (pointfoot_tpu/rl/runner.py, OnPolicyRunner).
+
+One `train_iteration` collects `num_steps_per_env` transitions of every env
+and runs the PPO update; `learn` loops it, logs the JAX package's metrics
+(`metrics.jsonl`, and TensorBoard where it can be imported) and saves
+checkpoints.  The runner owns the network, the PPO update (rl/ppo.py) and
+the generator of the action noise; the env state is passed in and out.
+
+The rollout runs under `torch.no_grad()`: the update recomputes log-probs
+and values from the stored observations, so the rollout needs no graph, and
+the CUDA kernels of the env step refuse inputs that carry one.  Not
+`inference_mode()`: the stored observations go into the update's forward
+pass, which cannot save inference tensors for backward.  The rollout fills
+storage preallocated as (T, B, ...), reused by the next iteration.
+
+Checkpoints are torch files, `model_<iteration>.pt`, holding the PPO state
+(parameters, Adam moments, learning rate, update count), the iteration and
+the env state.  Not ported yet: the recurrent policy, the data-parallel
+mesh and the bench-lock handshake of the JAX runner.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import json
+import os
+import time
+from typing import Callable, Dict, Optional
+
+import torch
+
+from pointfoot_tpu_torch.envs.config import TrainCfg
+from pointfoot_tpu_torch.envs.legged_env import EnvState
+from pointfoot_tpu_torch.rl.networks import (ActorCritic, gaussian_log_prob,
+                                             sample_action)
+from pointfoot_tpu_torch.rl.ppo import PPO, Transition
+
+INFO_KEYS = ("episode_rew", "num_resets", "terrain_level", "max_command_x",
+             "num_nan_quarantined")
+
+
+class OnPolicyRunner:
+    def __init__(self, env, train_cfg: TrainCfg,
+                 log_dir: Optional[str] = None):
+        if train_cfg.runner.policy_class_name != "ActorCritic":
+            raise NotImplementedError(
+                f"policy class '{train_cfg.runner.policy_class_name}' is not "
+                f"ported yet (ROADMAP §1: the recurrent policy)")
+        self.env = env
+        self.cfg = train_cfg
+        self.log_dir = log_dir
+        self.device = env.device
+        p = train_cfg.policy
+        self.network = ActorCritic(
+            env.num_obs, env.num_privileged_obs or env.num_obs,
+            env.num_actions, p.actor_hidden_dims, p.critic_hidden_dims,
+            p.activation, p.init_noise_std).to(self.device)
+        self.ppo = PPO(self.network, train_cfg.algorithm)
+        self.generator = torch.Generator(device=self.device)
+        self.current_iteration = 0
+        self._writer = None
+        self.storage = None
+
+    # ---------------------------------------------------------------- setup
+
+    def init(self, seed: int) -> EnvState:
+        """Fresh network (drawn on the CPU, the same on every device), Adam
+        state and learning rate; seeded generators; a fresh env state."""
+        self.network.reset_parameters(torch.Generator().manual_seed(seed))
+        self.ppo.reset()
+        self.generator.manual_seed(seed + 1)
+        self.ppo.generator.manual_seed(seed + 2)
+        return self.env.init_state(seed)
+
+    # ------------------------------------------------------------ iteration
+
+    def _buffers(self, obs: torch.Tensor, priv_obs) -> Transition:
+        T = self.cfg.runner.num_steps_per_env
+        B, na = self.env.num_envs, self.env.num_actions
+        st = self.storage
+        if st is None:
+            def z(*shape, dtype=torch.float32):
+                return torch.zeros((T, B) + shape, dtype=dtype,
+                                   device=self.device)
+
+            obs_buf = z(obs.shape[-1])
+            st = Transition(
+                obs=obs_buf,
+                # a symmetric critic reads the observations themselves
+                priv_obs=(obs_buf if priv_obs is None
+                          else z(priv_obs.shape[-1])),
+                action=z(na), reward=z(), done=z(dtype=torch.bool),
+                time_out=z(), value=z(), log_prob=z(), mean=z(na),
+                std=z(na))
+            self.storage = st
+        return st
+
+    @torch.no_grad()
+    def rollout(self, env_state: EnvState, obs, priv_obs, noise=None):
+        """`num_steps_per_env` policy steps.  `priv_obs` is None for a
+        symmetric-critic task, and `obs` stands in for it.  The action noise
+        comes from the runner's generator unless `noise` (T, B, na) gives
+        it.  Returns (env state, obs, priv_obs, the rollout as a Transition
+        of (T, B, ...) storage, the per-step infos)."""
+        net = self.network
+        st = self._buffers(obs, priv_obs)
+        T = st.obs.shape[0]
+        infos = {k: [] for k in INFO_KEYS}
+        for t in range(T):
+            po = obs if priv_obs is None else priv_obs
+            mean, std = net.distribution(obs)
+            value = net.value(po)
+            action = sample_action(mean, std, self.generator,
+                                   None if noise is None else noise[t])
+            log_prob = gaussian_log_prob(mean, std, action)
+            st.obs[t].copy_(obs)
+            if priv_obs is not None:
+                st.priv_obs[t].copy_(priv_obs)
+            env_state, out = self.env.step(env_state, action)
+            st.action[t].copy_(action)
+            st.reward[t].copy_(out.reward)
+            st.done[t].copy_(out.done)
+            st.time_out[t].copy_(out.extras["time_outs"])
+            st.value[t].copy_(value)
+            st.log_prob[t].copy_(log_prob)
+            st.mean[t].copy_(mean)
+            st.std[t].copy_(std)
+            for k in INFO_KEYS:
+                infos[k].append(out.extras[k])
+            obs = out.obs
+            priv_obs = None if priv_obs is None else out.privileged_obs
+        return (env_state, obs, priv_obs, st,
+                {k: torch.stack(v) for k, v in infos.items()})
+
+    def train_iteration(self, env_state: EnvState, obs, priv_obs,
+                        noise=None, perms=None):
+        """Rollout, then the PPO update.  `noise` and `perms` (one
+        permutation per epoch) replace the runner's and the PPO's draws.
+        Returns (env state, obs, priv_obs, metrics)."""
+        env_state, obs, priv_obs, rollout, infos = self.rollout(
+            env_state, obs, priv_obs, noise)
+        metrics = self.update(rollout, obs, priv_obs, perms)
+        return self._finish_iteration(env_state, obs, priv_obs, rollout,
+                                      infos, metrics)
+
+    def update(self, rollout: Transition, obs, priv_obs, perms=None):
+        """The PPO update of a rollout that ended at `obs` / `priv_obs`,
+        bootstrapped from their value."""
+        with torch.no_grad():
+            last_value = self.network.value(
+                obs if priv_obs is None else priv_obs)
+        return self.ppo.update(rollout, last_value, perms)
+
+    def _finish_iteration(self, env_state, obs, priv_obs, rollout, infos,
+                          metrics):
+        metrics["mean_reward"] = torch.mean(rollout.reward)
+        metrics["mean_episode_length"] = torch.mean(
+            env_state.episode_step.to(torch.float32))
+        metrics["noise_std"] = torch.mean(
+            torch.exp(self.network.log_std.detach()))
+        # episode decomposition averaged over the steps that had resets
+        n_resets = torch.sum(infos["num_resets"])
+        metrics["episode_rew"] = torch.sum(
+            infos["episode_rew"] * infos["num_resets"][:, None], dim=0
+        ) / torch.clamp_min(n_resets, 1)
+        metrics["num_resets"] = n_resets
+        metrics["num_nan_quarantined"] = torch.sum(
+            infos["num_nan_quarantined"])
+        metrics["terrain_level"] = infos["terrain_level"][-1]
+        metrics["max_command_x"] = infos["max_command_x"][-1]
+        return env_state, obs, priv_obs, metrics
+
+    # ---------------------------------------------------------------- learn
+
+    def learn(self, num_iterations: int, seed: Optional[int] = None,
+              env_state: Optional[EnvState] = None,
+              log_every: int = 10) -> EnvState:
+        """The training loop.  Without `env_state` it initialises from
+        `seed` (the config's by default), with random episode lengths drawn
+        from the env's generator; with one it goes on from the runner's
+        current network and optimizer (a resumed run).  Returns the final
+        env state."""
+        env = self.env
+        if env_state is None:
+            env_state = self.init(self.cfg.seed if seed is None else seed)
+            env_state = env_state.replace(episode_step=torch.randint(
+                0, env.max_episode_length, env_state.episode_step.shape,
+                generator=env.generator, device=self.device))
+        # initial observations: one zero-action step
+        env_state, out0 = env.step(env_state, torch.zeros(
+            env.num_envs, env.num_actions, device=self.device))
+        obs, priv_obs = out0.obs, out0.privileged_obs
+        t_start = time.time()
+        steps_per_iter = self.cfg.runner.num_steps_per_env * env.num_envs
+        save_interval = self.cfg.runner.save_interval
+        for it in range(num_iterations):
+            env_state, obs, priv_obs, metrics = self.train_iteration(
+                env_state, obs, priv_obs)
+            self.current_iteration += 1
+            if it % log_every == 0 or it == num_iterations - 1:
+                m = {k: v.cpu() for k, v in metrics.items()}
+                elapsed = time.time() - t_start
+                self._log(self.current_iteration, m,
+                          steps_per_iter * (it + 1) / max(elapsed, 1e-9))
+            if (save_interval > 0 and self.log_dir
+                    and self.current_iteration % save_interval == 0):
+                self.save(env_state)
+        if self.log_dir:
+            self.save(env_state)
+        return env_state
+
+    # -------------------------------------------------------------- logging
+
+    def _log(self, it: int, m: Dict, steps_per_sec: float):
+        scalars = {
+            "it": it,
+            "steps_per_sec": round(float(steps_per_sec), 1),
+            "mean_reward": float(m["mean_reward"]),
+            "mean_episode_length": float(m["mean_episode_length"]),
+            "value_loss": float(m["value_loss"]),
+            "surrogate_loss": float(m["surrogate_loss"]),
+            "kl": float(m["kl"]),
+            "lr": float(m["learning_rate"]),
+            "lr_intra": float(m["lr_intra"]),
+            "noise_std": float(m["noise_std"]),
+            "terrain_level": float(m["terrain_level"]),
+            "nan_quarantined": int(m["num_nan_quarantined"]),
+        }
+        for name, val in zip(self.env.reward_names,
+                             m["episode_rew"].tolist()):
+            scalars[f"rew_{name}"] = float(val)
+        print(f"it {it:6d} | {scalars['steps_per_sec']:9.0f} steps/s | "
+              f"rew {scalars['mean_reward']:8.4f} | "
+              f"eplen {scalars['mean_episode_length']:6.1f} | "
+              f"kl {scalars['kl']:.4f} | lr {scalars['lr']:.1e}", flush=True)
+        if self.log_dir:
+            os.makedirs(self.log_dir, exist_ok=True)
+            with open(os.path.join(self.log_dir, "metrics.jsonl"), "a") as f:
+                f.write(json.dumps(scalars) + "\n")
+            self._tb_log(it, scalars)
+
+    def _tb_log(self, it: int, scalars: Dict):
+        if self._writer is None:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:  # tensorboard is optional
+                self._writer = False
+            else:
+                self._writer = SummaryWriter(self.log_dir)
+        if self._writer:
+            for k, v in scalars.items():
+                if k != "it":
+                    self._writer.add_scalar(k, v, it)
+
+    # ---------------------------------------------------------- checkpoints
+
+    def save(self, env_state: EnvState) -> str:
+        """`<log_dir>/model_<iteration>.pt`: the PPO state, the iteration
+        and the env state."""
+        os.makedirs(self.log_dir, exist_ok=True)
+        path = os.path.join(self.log_dir,
+                            f"model_{self.current_iteration}.pt")
+        torch.save({"train_state": self.ppo.state_dict(),
+                    "iteration": self.current_iteration,
+                    "env_state": _state_to_dict(env_state)}, path)
+        return path
+
+    def load(self, path: str, env_state: EnvState) -> EnvState:
+        """Restore the PPO state and iteration from `path`.  Returns the
+        saved env state where every saved field has the shape of the one in
+        `env_state`; otherwise (another env batch, such as evaluating a
+        4096-env run with 50 envs) `env_state` itself."""
+        raw = torch.load(path, map_location=self.device, weights_only=True)
+        self.ppo.load_state_dict(raw["train_state"])
+        self.current_iteration = int(raw["iteration"])
+        saved = raw["env_state"]
+        fresh = _state_to_dict(env_state)
+        if all(k in fresh and _same_shapes(fresh[k], v)
+               for k, v in saved.items()):
+            return _state_from_dict(env_state, saved)
+        return env_state
+
+    # ------------------------------------------------------------ inference
+
+    def get_inference_policy(self) -> Callable:
+        """Deterministic policy obs -> action mean, of the current
+        parameters (a copy: later updates do not change it)."""
+        actor = copy.deepcopy(self.network.actor).eval()
+
+        @torch.no_grad()
+        def policy(obs):
+            return actor(obs)
+
+        return policy
+
+
+def _state_to_dict(state) -> dict:
+    return {f.name: (_state_to_dict(getattr(state, f.name))
+                     if dataclasses.is_dataclass(getattr(state, f.name))
+                     else getattr(state, f.name))
+            for f in dataclasses.fields(state)}
+
+
+def _same_shapes(fresh, saved) -> bool:
+    if isinstance(saved, dict):
+        return isinstance(fresh, dict) and all(
+            k in fresh and _same_shapes(fresh[k], v)
+            for k, v in saved.items())
+    return isinstance(fresh, torch.Tensor) and fresh.shape == saved.shape
+
+
+def _state_from_dict(template, saved: dict):
+    """`template` with every field that `saved` holds replaced by the saved
+    value; fields added since the checkpoint keep the template's."""
+    kw = {}
+    for name, v in saved.items():
+        cur = getattr(template, name)
+        kw[name] = (_state_from_dict(cur, v) if isinstance(v, dict)
+                    else v.to(cur.device, cur.dtype))
+    return dataclasses.replace(template, **kw)

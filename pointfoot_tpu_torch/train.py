@@ -1,0 +1,139 @@
+"""Training entry point (scripts/train.py of the JAX package).
+
+    python -m pointfoot_tpu_torch.train --task pointfoot_rough \
+        --override terrain.procedural=true
+    python -m pointfoot_tpu_torch.train --device cpu --num_envs 8 \
+        --max_iterations 2 --override terrain.procedural=true \
+        --log_dir /tmp/pf_run
+    python -m pointfoot_tpu_torch.train --resume --load_run \
+        /tmp/pf_run/model_2.pt ...
+
+Runs on the GPU unless --device names another.  `--override` and
+`--train_override` take GROUP.FIELD=VALUE (repeatable), VALUE parsed as a
+Python literal (true/false too); they overlay the task's env and training
+configs.  Without --log_dir the run logs under
+logs/<experiment_name>/<date>; `run_config.jsonl` there gets one line a
+launch, with the resolved configs.  `--resume` continues from --load_run (a
+`model_<it>.pt`), or from the newest checkpoint of the newest run under
+logs/<experiment_name>.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import dataclasses
+import datetime
+import json
+import os
+import re
+import sys
+from dataclasses import replace
+
+from pointfoot_tpu_torch.utils.registry import (get_cfgs, make_alg_runner,
+                                                make_env)
+
+
+def get_args(argv=None):
+    p = argparse.ArgumentParser(description="pointfoot_tpu_torch trainer")
+    p.add_argument("--task", default="pointfoot_rough")
+    p.add_argument("--num_envs", type=int, default=None)
+    p.add_argument("--max_iterations", type=int, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--log_dir", default=None)
+    p.add_argument("--log_every", type=int, default=10)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--load_run", default=None,
+                   help="checkpoint file to resume from (default: latest)")
+    p.add_argument("--override", action="append", default=[],
+                   metavar="GROUP.FIELD=VALUE",
+                   help="env-config override, repeatable: e.g. "
+                        "--override terrain.procedural=true")
+    p.add_argument("--train_override", action="append", default=[],
+                   metavar="GROUP.FIELD=VALUE",
+                   help="train-config override, repeatable: e.g. "
+                        "--train_override algorithm.max_lr=2.5e-4")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the GPU)")
+    return p.parse_args(argv)
+
+
+def parse_override(ov: str, flag: str):
+    path, _, raw = ov.partition("=")
+    group, _, field = path.partition(".")
+    if not (group and field and raw):
+        raise SystemExit(f"bad {flag} {ov!r}: want GROUP.FIELD=VALUE")
+    try:
+        val = ast.literal_eval(raw)
+    except (ValueError, SyntaxError):
+        val = {"true": True, "false": False}.get(raw.lower(), raw)
+    return group, field, val
+
+
+def latest_checkpoint(root: str) -> str:
+    """The newest `model_<it>.pt` of the last run directory under `root`
+    by sort order."""
+    runs = sorted(d for d in os.listdir(root)
+                  if os.path.isdir(os.path.join(root, d))) \
+        if os.path.isdir(root) else []
+    if not runs:
+        raise FileNotFoundError(f"no runs in {root}")
+    run_dir = os.path.join(root, runs[-1])
+    models = [f for f in os.listdir(run_dir)
+              if re.fullmatch(r"model_\d+\.pt", f)]
+    if not models:
+        raise FileNotFoundError(f"no checkpoints in {run_dir}")
+    models.sort(key=lambda f: int(f[len("model_"):-len(".pt")]))
+    return os.path.join(run_dir, models[-1])
+
+
+def main(argv=None):
+    args = get_args(argv)
+    cfg_patch = {}
+    for ov in args.override:
+        group, field, val = parse_override(ov, "--override")
+        cfg_patch.setdefault(group, {})[field] = val
+    env = make_env(args.task, num_envs=args.num_envs, device=args.device,
+                   cfg_patch=cfg_patch or None)
+
+    _, train_cfg = get_cfgs(args.task)
+    for ov in args.train_override:
+        group, field, val = parse_override(ov, "--train_override")
+        train_cfg = replace(train_cfg, **{group: replace(
+            getattr(train_cfg, group), **{field: val})})
+    if args.max_iterations is not None:
+        train_cfg = replace(train_cfg, runner=replace(
+            train_cfg.runner, max_iterations=args.max_iterations))
+    log_dir = args.log_dir or os.path.join(
+        "logs", train_cfg.runner.experiment_name,
+        datetime.datetime.now().strftime("%b%d_%H-%M-%S"))
+    runner = make_alg_runner(env, args.task, log_dir=log_dir,
+                             train_cfg=train_cfg)
+    seed = args.seed if args.seed is not None else train_cfg.seed
+    iters = train_cfg.runner.max_iterations
+
+    env_state = None
+    if args.resume:
+        path = args.load_run or latest_checkpoint(
+            os.path.join("logs", train_cfg.runner.experiment_name))
+        env_state = runner.load(path, runner.init(seed))
+        print(f"resumed from {path} @ iteration {runner.current_iteration}")
+
+    os.makedirs(log_dir, exist_ok=True)
+    with open(os.path.join(log_dir, "run_config.jsonl"), "a") as f:
+        f.write(json.dumps({
+            "argv": sys.argv[1:] if argv is None else list(argv),
+            "task": args.task, "num_envs": env.num_envs, "iters": iters,
+            "seed": int(seed), "env_cfg": dataclasses.asdict(env.cfg),
+            "train_cfg": dataclasses.asdict(train_cfg),
+        }, default=str) + "\n")
+
+    print(f"task={args.task} envs={env.num_envs} iters={iters} "
+          f"device={env.device} log_dir={log_dir}", flush=True)
+    runner.learn(iters, seed=seed, env_state=env_state,
+                 log_every=args.log_every)
+    return runner
+
+
+if __name__ == "__main__":
+    main()

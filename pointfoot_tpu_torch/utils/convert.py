@@ -9,6 +9,10 @@
   ignored.
 - `srb_problem_from_numpy`: the eight arrays of a batch of SRB-LQR problems
   (mpc/srb.srb_problem: F, c_tot, L, Xd, Ud, XTd, x0, f_ff) -> tensors.
+- `train_state_from_numpy`: a JAX TrainState (params, optax's Adam moments
+  and count, learning rate, update count) -> the state rl/ppo.PPO loads,
+  so a JAX checkpoint can be resumed by the port.  `flatten` turns what
+  orbax restores into flat "a/b/c" keys, for an npz.
 
 The actuator network's weights need no conversion: physics/actuator.py
 reads its own byte-identical copy of the baked JSON the JAX package reads.
@@ -26,13 +30,17 @@ from pointfoot_tpu_torch.envs.legged_env import EnvState
 from pointfoot_tpu_torch.physics.model import PhysicsParams, PhysicsState
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested mappings and sequences (orbax restores tuples as lists) ->
+    {"a/b/0/c": array}; empty leaves (optax's EmptyState) are dropped."""
+    items = (tree.items() if isinstance(tree, Mapping)
+             else enumerate(tree))
     out = {}
-    for k, v in tree.items():
+    for k, v in items:
         key = f"{prefix}/{k}" if prefix else str(k)
-        if isinstance(v, Mapping):
-            out.update(_flatten(v, key))
-        else:
+        if isinstance(v, (Mapping, list, tuple)):
+            out.update(flatten(v, key))
+        elif v is not None:
             out[key] = np.asarray(v)
     return out
 
@@ -41,7 +49,7 @@ def actor_critic_state_dict(flax_params: Mapping) -> Dict[str, torch.Tensor]:
     """Map `actor/Dense_i/{kernel,bias}`, `critic/Dense_i/...` and `log_std`
     (nested dicts, optionally under "params", or flat "a/b/c" keys) onto
     `actor.{2i}.{weight,bias}`, `critic.{2i}...` and `log_std`."""
-    flat = _flatten(flax_params)
+    flat = flatten(flax_params)
     out = {}
     for key, arr in flat.items():
         parts = key.split("/")
@@ -61,6 +69,30 @@ def actor_critic_state_dict(flax_params: Mapping) -> Dict[str, torch.Tensor]:
         else:
             raise KeyError(f"unexpected flax parameter {key}")
     return out
+
+
+def train_state_from_numpy(arrays: Mapping) -> dict:
+    """The state `PPO.load_state_dict` takes, from the arrays of a JAX
+    TrainState: nested as orbax restores it, or flat with "a/b/c" keys
+    (`params/params/...`, `opt_state/2/{mu,nu}/params/...`,
+    `opt_state/2/count`, `learning_rate`, `update_count`; index 2 of the
+    optimizer chain is optax's scale_by_adam).  The Adam moments of a
+    kernel are transposed as the kernel is."""
+    flat = flatten(arrays)
+
+    def sub(prefix: str) -> Dict[str, np.ndarray]:
+        return {k[len(prefix):]: v for k, v in flat.items()
+                if k.startswith(prefix)}
+
+    mu = actor_critic_state_dict(sub("opt_state/2/mu/"))
+    nu = actor_critic_state_dict(sub("opt_state/2/nu/"))
+    return {
+        "params": actor_critic_state_dict(sub("params/")),
+        "adam": {k: {"exp_avg": mu[k], "exp_avg_sq": nu[k]} for k in mu},
+        "adam_step": int(flat["opt_state/2/count"]),
+        "learning_rate": float(np.float32(flat["learning_rate"])),
+        "update_count": int(flat["update_count"]),
+    }
 
 
 def _tensor(a, device) -> torch.Tensor:

@@ -36,3 +36,18 @@ def make_env(name: str, num_envs: Optional[int] = None, device=None,
     if cfg_patch:
         env_cfg = override(env_cfg, **cfg_patch)
     return LeggedEnv(env_cfg, device=device)
+
+
+def make_alg_runner(env: LeggedEnv, name: str, log_dir: Optional[str] = None,
+                    train_cfg: Optional[TrainCfg] = None,
+                    max_iterations: Optional[int] = None):
+    """The on-policy runner of task `name` on the env's device, with the
+    registered training config unless `train_cfg` is given."""
+    from pointfoot_tpu_torch.rl.runner import OnPolicyRunner
+
+    if train_cfg is None:
+        _, train_cfg = get_cfgs(name)
+    if max_iterations is not None:
+        train_cfg = replace(train_cfg, runner=replace(
+            train_cfg.runner, max_iterations=max_iterations))
+    return OnPolicyRunner(env, train_cfg, log_dir=log_dir)

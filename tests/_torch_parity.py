@@ -107,3 +107,63 @@ def srb_lqr_problem(num: int, m: int, seed: int = 0):
     x0 = rng.normal(size=(num, n)).astype(np.float32)
     f_ff = rng.normal(size=(num, m)).astype(np.float32)
     return F, c, L, Xd, Ud, XTd, x0, f_ff
+
+
+# ------------------------------------------------- PPO update, both sides
+
+# |g| / max |g| of its tensor below which a gradient entry may be roundoff
+# noise around zero
+GRAD_FLOOR = 1e-4
+
+
+def jax_minibatches(jppo, ts, roll, last_value, perms):
+    """The JAX package's `PPO.update` unrolled minibatch by minibatch, with
+    its own `_loss` and `_sgd_step` and the given per-epoch permutations:
+    the metrics and the gradients (as the port's state dicts) of every
+    minibatch, and the final TrainState."""
+    import jax
+    import jax.numpy as jnp
+
+    from pointfoot_tpu.rl import ppo as jppo_mod
+    from pointfoot_tpu_torch.utils import convert
+
+    cfg = jppo.cfg
+    adv, ret = jppo_mod.compute_gae(roll.reward, roll.done, roll.time_out,
+                                    roll.value, last_value, cfg.gamma,
+                                    cfg.lam)
+    n = adv.size
+    flat = jax.tree.map(lambda x: x.reshape((n,) + x.shape[2:]), roll)
+    adv, ret = adv.reshape(-1), ret.reshape(-1)
+
+    @jax.jit
+    def step(ts, idx):
+        mb = jax.tree.map(lambda x: x[idx], flat)
+        (_, m), g = jax.value_and_grad(jppo._loss, has_aux=True)(
+            ts.params, mb, adv[idx], ret[idx])
+        m = dict(m, lr_intra=ts.learning_rate)
+        return jppo._sgd_step(ts, g, m), m, g
+
+    mb_size = n // cfg.num_mini_batches
+    metrics, grads = [], []
+    for perm in perms:
+        for i in range(cfg.num_mini_batches):
+            ts, m, g = step(ts, jnp.asarray(perm[i * mb_size:
+                                                 (i + 1) * mb_size]))
+            metrics.append(jax.tree.map(np.asarray, m))
+            grads.append(convert.actor_critic_state_dict(
+                jax.tree.map(np.asarray, g)))
+    return metrics, grads, ts
+
+
+def adam_bound(grads, metrics, name: str) -> np.ndarray:
+    """Per entry of parameter `name`, how far the two packages' values may
+    lie apart after an update: 1e-6 where every step's gradient stayed
+    clear of zero (|g| > GRAD_FLOOR of its tensor's largest), else
+    2 * (sum of the rates used) + 1e-6, since Adam's step is about
+    lr * sign(g) and the sign of roundoff noise is arbitrary."""
+    g = np.stack([gr[name].numpy() for gr in grads])
+    scale = np.abs(g).reshape(len(g), -1).max(axis=1)
+    clear = (np.abs(g) > GRAD_FLOOR * scale.reshape(
+        (-1,) + (1,) * (g.ndim - 1))).all(axis=0)
+    lr_sum = float(sum(m["lr_intra"] for m in metrics))
+    return np.where(clear, 1e-6, 2.0 * lr_sum + 1e-6)

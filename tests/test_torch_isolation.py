@@ -138,13 +138,13 @@ def test_bench_record_and_unported_modes(capsys):
     cond = rec["conditions"]
     assert cond["solver"] == "plain" and cond["card"] == "cpu"
     assert len(cond["reps_solves_per_sec"]) == 2
-    for mode in ("env", "mpc_ilqr", "actuator_net", "train"):
+    for mode in ("env", "mpc_ilqr", "actuator_net"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             bench.main(["--mode", mode, "--device", "cpu"])
 
 
 def _entry_points():
-    from pointfoot_tpu_torch import bench, device, play
+    from pointfoot_tpu_torch import bench, device, play, train
     from pointfoot_tpu_torch.utils import policy_eval, registry
 
     return {
@@ -157,12 +157,17 @@ def _entry_points():
             "pointfoot_rough", 2, policy_eval.FLAGSHIP_PATCH),
         "play": lambda: play.main(["--num_envs", "2", "--steps", "1"]),
         "bench_mpc": lambda: bench.main(["--mode", "mpc", "--num_envs", "2"]),
+        "train": lambda: train.main(["--num_envs", "2",
+                                     "--max_iterations", "1"]),
+        "bench_train": lambda: bench.main(["--mode", "train",
+                                           "--num_envs", "2"]),
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "make_env",
                                   "make_env_anymal", "make_eval_env",
-                                  "play", "bench_mpc"])
+                                  "play", "bench_mpc", "train",
+                                  "bench_train"])
 def test_entry_points_raise_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
