@@ -2,12 +2,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's four main paths at full width: the policy rollout of
+Drives the port's main paths at full width: the policy rollout of
 pointfoot_rough (fused rollout kernels) and the actuator-net task
 anymal_c_rough (physics/dynamics.step_batched and its kernels), both on
 procedural terrain at 4096 envs, the SRB-MPC tick of PointFoot at 4096
-scenarios (the fused SRB-LQR kernel), and PPO training of pointfoot_rough
-at 4096 envs (its rollouts through the fused rollout kernels).
+scenarios (the fused SRB-LQR kernel), PPO training of pointfoot_rough at
+4096 envs (its rollouts through the fused rollout kernels), and the same
+env paths on plane terrain (pointfoot_flat, anymal_c_flat, PPO training of
+pointfoot_flat) and on table terrain (the registered pointfoot_rough and
+anymal_c_rough).
 
 1. device and build: the card's name and power limit; the PointFoot,
    ANYmal, A1, Cholesky and Riccati libraries of pointfoot_tpu_torch/csrc/
@@ -15,9 +18,9 @@ at 4096 envs (its rollouts through the fused rollout kernels).
    memory a block, resident warps an SM);
 2. PointFoot kernels against their plain PyTorch versions on a state
    reached after 20 policy steps, with a push queued: the full decimation
-   rollout and one rollout substep, each within its stated tolerance, also
-   at 1000, 1 and 4099 envs (batches that leave a block's groups idle),
-   and two launches bit for bit; the sphere-xyz FK bit for bit against its
+   rollout and one rollout substep, each within its stated tolerance and
+   bit for bit, also at 1000, 1 and 4099 envs (batches that leave a
+   block's groups idle), and two launches bit for bit; the sphere-xyz FK bit for bit against its
    plain version at 4096, 1000, 1 and 4099 envs, on this state, on an
    anymal_c_rough state and on perturbed A1 poses, and two launches bit
    for bit;
@@ -25,7 +28,7 @@ at 4096 envs (its rollouts through the fused rollout kernels).
    state reached after 20 steps of the bench action signal, with a push
    queued: the mega-kernel route (sphere-xy FK, surface query, substep
    kernel) against the plain path, the substep kernel and the FK-xy
-   kernel (bit for bit) against their twins at 4096, 1000, 1 and 4099
+   kernel bit for bit against their twins at 4096, 1000, 1 and 4099
    envs and two launches bit for bit, and the Cholesky kernel bit for bit
    against ops/linalg.chol_solve on the velocity systems of 2048 ANYmal
    (n = 18) and 2048 PointFoot (n = 12) envs, at 1000, 1 and 4099 of them
@@ -76,7 +79,32 @@ at 4096 envs (its rollouts through the fused rollout kernels).
    the card's PPO update held to the CPU's on the first 256 envs of a card
    rollout, from the same parameters, Adam state and permutations: the
    first minibatch's gradients, every minibatch's losses and KL, the
-   learning rates, and the final parameters and Adam moments.
+   learning rates, and the final parameters and Adam moments;
+11. plane terrain: pointfoot_flat at 4096 envs with model_82000's actor and
+   the reward and command knobs it trained under: the fused rollout
+   against its plain version with no surface rows, one rollout substep
+   without surface rows at 4096, 1000, 1 and 4099 envs and two launches
+   bit for bit, and its per-launch time; 200 policy steps with the launch
+   counters (rollout substep kernel 4x the step count, sphere-xyz FK 0: no
+   surface query), env-steps/s, a per-layer breakdown and the probe of
+   policy-regression row 5 (command 0.5 m/s, 6 s: mean forward velocity
+   >= 0.30 m/s, falls reported); anymal_c_flat for 20 steps (substep kernel
+   4x the step count, FK-xy 0: step_batched's flat branch);
+12. table terrain, the registered configs: pointfoot_rough with
+   model_100000's actor, the fused rollout and one substep on the table's
+   surface rows against their plain versions (4096, 1000, 1, 4099 envs),
+   the sphere-xyz FK bit for bit; 100 steps with the launch counters (4 + 1
+   a step), env-steps/s, a per-layer breakdown with the table's surface
+   query and height scan, and the probe of row 1 (level 0, 0.4 m/s, 6 s:
+   mean forward velocity >= 0.20 m/s); anymal_c_rough on the table: the
+   mega-kernel route against the plain path on the same surface rows, the
+   substep and FK-xy kernels against their twins, 20 steps with the
+   counters; then bench.main_env for pointfoot_rough and anymal_c_rough
+   (the procedural headline and the table leg, 24-step iterations);
+13. PPO training of pointfoot_flat at 4096 envs with its registered PPO
+   config (128/64/32) and model_82000's knobs: one warm iteration and two
+   timed, 96 rollout-substep launches and no sphere-xyz FK an iteration,
+   and the state checks of phase 10.
 
 The line before the last holds the kernels' JSON record, the one before it
 the card's name and power limit, and the last line is the JSON
@@ -164,6 +192,15 @@ SRB_GATE_CFG = dict(height_target=0.28, w_vel=1.0, w_height=10.0,
                     w_force_tangent=2e-2, kp_swing=20.0, kd_swing=0.5)
 SRB_GATE_TICKS, SRB_GATE_SUBSTEPS, SRB_GATE_DT = 50, 4, 0.005
 TRAIN_WARM, TRAIN_TIMED = 2, 3  # iterations
+FLAT_TRAIN_WARM, FLAT_TRAIN_TIMED = 1, 2  # pointfoot_flat (phase 13)
+FLAT_STEPS = 200
+ANYMAL_FLAT_STEPS = 20
+TABLE_STEPS = 100
+ANYMAL_TABLE_STEPS = 20
+# bench.main_env inside the smoke run: iterations of 24 steps a repetition
+BENCH_ITERS, BENCH_REPS = 1, 2
+MODEL_100000 = (policy_eval.WEIGHTS
+                + "/pointfoot_rough_model_100000_actor.npz")
 TRAIN_CHECK_ENVS = 256  # envs of a card rollout whose update the CPU redoes
 # tests/test_torch_ppo.py: losses, KL and gradients (rtol, and atol scaled
 # by the tensor's largest entry for gradients)
@@ -367,7 +404,9 @@ def build_kernels(mc_pf, mc_any, mc_a1):
 # ------------------------------------------ 2. PointFoot kernels vs plain
 
 def check_rollout(got, want):
-    """Hold a kernel rollout (phys, tau, sphere_pos) to the plain one."""
+    """Hold a kernel rollout (phys, tau, sphere_pos) to the plain one:
+    within the JAX tests' tolerances, and bit for bit, as the substep
+    kernels do the plain version's operations in its order."""
     (gp, gt, gs), (wp, wt, ws) = got, want
     errs = {
         "qvel": max_err(gp.qvel, wp.qvel),
@@ -391,6 +430,11 @@ def check_rollout(got, want):
     for v in errs.values():
         if not np.isfinite(v):
             raise AssertionError(f"non-finite rollout error {errs}")
+    if not (all(torch.equal(getattr(gp, f), getattr(wp, f))
+                for f in gp.__dataclass_fields__)
+            and torch.equal(gt, wt) and torch.equal(gs, ws)):
+        raise AssertionError(f"rollout: not bit-identical to the plain "
+                             f"version, max |err| {errs}")
     return errs
 
 
@@ -413,6 +457,10 @@ def check_rollout_step(mc, step_args):
         raise AssertionError(
             f"rollout_step B={ks.shape[1]}: state {state_err}, forces "
             f"{float(force_err.max())}")
+    if not (torch.equal(ks, ps) and torch.equal(ke, pe)):
+        raise AssertionError(
+            f"rollout_step B={ks.shape[1]}: not bit-identical to the plain "
+            f"version, state {state_err}, forces {float(force_err.max())}")
     return (max(state_err, max_err(ke, pe)), state_err,
             float(force_err.max()), ke)
 
@@ -439,17 +487,23 @@ def check_fk_rows(mc, state_rows, what) -> float:
     return err
 
 
-def pointfoot_kernels(env, mc, policy):
+def warm_with_push(env, policy, seed: int):
+    """A state WARM_STEPS policy steps in with a push queued, and the
+    policy's next actions."""
     state = env.init_state(0)
     obs = torch.zeros(NUM_ENVS, env.num_obs, device=env.device)
     for _ in range(WARM_STEPS):
         state, out = env.step(state, policy(obs))
         obs = out.obs
-    g = torch.Generator(device=env.device).manual_seed(5)
+    g = torch.Generator(device=env.device).manual_seed(seed)
     push = 200.0 * (2.0 * torch.rand(NUM_ENVS, 3, generator=g,
                                      device=env.device) - 1.0)
-    state = state.replace(push_force=push)
-    actions = policy(obs)
+    return state.replace(push_force=push), policy(obs)
+
+
+def check_env_rollout(env, state, actions, what: str):
+    """The fused decimation rollout through the kernels against its plain
+    version, on the env's own terrain."""
     c = env.cfg.control
     roll_args = (env.model, state.params, state.physics, actions,
                  state.last_qvel, state.push_force, env.height_fn,
@@ -459,8 +513,15 @@ def pointfoot_kernels(env, mc, policy):
     want = sp.rollout_substeps_plain(*roll_args)
     torch.cuda.synchronize()
     errs = check_rollout(got, want)
-    log("[kernels] rollout_substeps kernel vs plain, max |err|: "
+    log(f"[kernels] rollout_substeps kernel vs plain, {what}, max |err|: "
         + json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}))
+    return errs
+
+
+def pointfoot_kernels(env, mc, policy):
+    state, actions = warm_with_push(env, policy, 5)
+    c = env.cfg.control
+    check_env_rollout(env, state, actions, "procedural terrain")
 
     # one substep and the FK, at the main path's shapes
     state_rows = sp.pack_state(state.physics, state.last_qvel)
@@ -562,8 +623,8 @@ def check_cholesky(A_t, b_t, what):
 
 def check_step_rows(mc, in_rows, surf_rows, dt, grav):
     """Hold the substep kernel to its plain twin on the same rows, field by
-    field within STEP_TOL: (kernel rows, max |err|, max |err| over the state
-    rows)."""
+    field within STEP_TOL and bit for bit: (kernel rows, max |err|, max
+    |err| over the state rows)."""
     k_rows = sp.step_rows(mc, in_rows, surf_rows, dt, grav)
     p_rows = sp.step_rows_plain(mc, in_rows, surf_rows, dt, grav)
     torch.cuda.synchronize()
@@ -580,33 +641,21 @@ def check_step_rows(mc, in_rows, surf_rows, dt, grav):
                 f"substep kernel vs plain twin B={k_rows.shape[1]}: {name} "
                 f"max |err| {max_err(g, w)} beyond atol {atol}, rtol {rtol}")
         row += cnt
+    if not torch.equal(k_rows, p_rows):
+        raise AssertionError(
+            f"substep kernel vs plain twin B={k_rows.shape[1]}: not "
+            f"bit-identical, max |err| {max_err(k_rows, p_rows)}")
     n_state = 13 + 2 * mc.nj
     return (k_rows, max_err(k_rows, p_rows),
             max_err(k_rows[:n_state], p_rows[:n_state]))
 
 
-def anymal_kernels(env, mc, pf_env, pf_state):
-    dev = env.device
-    signal = bench_signal(env)
-    state = env.init_state(0)
-    for t in range(WARM_STEPS):
-        state, _ = env.step(state, signal(t))
-    g = torch.Generator(device=dev).manual_seed(6)
-    push = 200.0 * (2.0 * torch.rand(NUM_ENVS, 3, generator=g,
-                                     device=dev) - 1.0)
-    phys, params = state.physics, state.params
-    c = env.cfg.control
-    pos_err = signal(WARM_STEPS) * c.action_scale + env.default_qpos \
-        - phys.qpos
-    tau, _ = act.actuator_net_torque(env.actuator_weights,
-                                     state.actuator_carry, pos_err,
-                                     phys.qvel)
-    tau = torch.clamp(tau, -env.torque_limit, env.torque_limit)
+def check_route(env, phys, params, tau, push, what: str):
+    """The mega-kernel route of step_batched against the plain path on the
+    same device and state, and the same terrain under each sphere: the
+    route's query at the FK-xy kernel's positions.  Returns those positions
+    and the surface there."""
     dt, grav = env.cfg.sim.dt, env.cfg.sim.gravity
-
-    # the mega-kernel route against the plain path on the same device and
-    # state, and the same terrain under each sphere: the route's query at
-    # the FK-xy kernel's positions
     got = dynamics.step_batched(env.model, params, phys, tau, env.height_fn,
                                 dt, external_force=push, gravity=grav)
     xy = sp.fk_contact_xy(env.model, phys)
@@ -615,12 +664,13 @@ def anymal_kernels(env, mc, pf_env, pf_state):
                          external_force=push, gravity=grav, surface=surface)
     torch.cuda.synchronize()
     route, beyond = step_errors(got, want)
-    log("[kernels] step_batched mega-kernel route vs plain path, same "
-        "surface, max |err| (share of tolerance): " + json.dumps(
-            {k: f"{e:.3g} ({100 * s:.2g}%)" for k, (e, s) in route.items()}))
+    log(f"[kernels] step_batched mega-kernel route vs plain path on {what} "
+        f"terrain, same surface, max |err| (share of tolerance): "
+        + json.dumps({k: f"{e:.3g} ({100 * s:.2g}%)"
+                      for k, (e, s) in route.items()}))
     if bool(beyond.any()):
-        raise AssertionError(f"step_batched: {int(beyond.sum())} envs beyond "
-                             f"the tolerances {STEP_TOL}: {route}")
+        raise AssertionError(f"step_batched {what}: {int(beyond.sum())} envs "
+                             f"beyond the tolerances {STEP_TOL}: {route}")
     # the plain path querying the terrain itself places each sphere in world
     # coordinates, a few ulp (~1e-5 m at 100 m) from the route's base-
     # relative FK: every env that then leaves the tolerance must be one
@@ -634,16 +684,43 @@ def anymal_kernels(env, mc, pf_env, pf_state):
     _, beyond_own = step_errors(got, own)
     if bool((beyond_own & ~moved).any()):
         raise AssertionError(
-            f"step_batched vs the plain path's own terrain query: "
+            f"step_batched vs the plain path's own terrain query ({what}): "
             f"{int((beyond_own & ~moved).sum())} envs beyond the tolerances "
             f"with the same terrain under every sphere")
-    log(f"[kernels] step_batched vs the plain path's own terrain query: "
-        f"{int(beyond_own.sum())} of {NUM_ENVS} envs beyond the tolerances, "
-        f"all with other terrain under a sphere ({int(moved.sum())} envs "
-        f"see a height or normal >1e-6 apart; {int((d_n > 0.1).sum())} a "
-        f"normal flipped at a cell edge)")
+    log(f"[kernels] step_batched vs the plain path's own terrain query "
+        f"({what}): {int(beyond_own.sum())} of {NUM_ENVS} envs beyond the "
+        f"tolerances, all with other terrain under a sphere "
+        f"({int(moved.sum())} envs see a height or normal >1e-6 apart; "
+        f"{int((d_n > 0.1).sum())} a normal flipped at a cell edge)")
+    return xy, surface
 
-    # the substep kernel against its plain twin on the same rows
+
+def anymal_inputs(env, seed: int):
+    """A state WARM_STEPS steps of the bench signal in, a push, and the
+    actuator network's torque for the next step."""
+    signal = bench_signal(env)
+    state = env.init_state(0)
+    for t in range(WARM_STEPS):
+        state, _ = env.step(state, signal(t))
+    g = torch.Generator(device=env.device).manual_seed(seed)
+    push = 200.0 * (2.0 * torch.rand(NUM_ENVS, 3, generator=g,
+                                     device=env.device) - 1.0)
+    phys = state.physics
+    c = env.cfg.control
+    pos_err = signal(WARM_STEPS) * c.action_scale + env.default_qpos \
+        - phys.qpos
+    tau, _ = act.actuator_net_torque(env.actuator_weights,
+                                     state.actuator_carry, pos_err,
+                                     phys.qvel)
+    tau = torch.clamp(tau, -env.torque_limit, env.torque_limit)
+    return state, signal, push, tau
+
+
+def check_substep_and_fk_xy(mc, phys, params, tau, push, surface, dt, grav,
+                            what: str):
+    """The substep kernel against its plain twin on the same rows, and the
+    FK-xy kernel bit for bit, at the full width and the RAGGED batches and
+    two launches; returns the rows and the max |err|s."""
     in_rows = sp.pack_substep_in(phys, params, tau, push)
     surf_rows = sp.pack_surface(surface)
     k_rows, sub_err, sub_state_err = check_step_rows(
@@ -651,10 +728,10 @@ def anymal_kernels(env, mc, pf_env, pf_state):
     for num in RAGGED:
         part = ragged_columns((in_rows, surf_rows), num)
         errs = check_step_rows(mc, *part, dt, grav)[1:]
-        log(f"[kernels] substep kernel vs plain twin B={num}: max |err| "
-            f"{errs[0]:.3g} (state rows {errs[1]:.3g})")
-    check_same_bits("substep", lambda: sp.step_rows(mc, in_rows, surf_rows,
-                                                    dt, grav))
+        log(f"[kernels] substep kernel vs plain twin, {what}, B={num}: max "
+            f"|err| {errs[0]:.3g} (state rows {errs[1]:.3g})")
+    check_same_bits(f"substep {what}",
+                    lambda: sp.step_rows(mc, in_rows, surf_rows, dt, grav))
     fk_in = sp.pack_fk_in(phys)
     xy_err = 0.0
     for num in (NUM_ENVS,) + RAGGED:
@@ -664,16 +741,31 @@ def anymal_kernels(env, mc, pf_env, pf_state):
         torch.cuda.synchronize()
         err = max_err(xy_k, xy_p)
         if xy_k.shape != xy_p.shape or not torch.equal(xy_k, xy_p):
-            raise AssertionError(f"fk_contact_xy B={num}: not bit-identical "
-                                 f"to the plain version, max |err| {err}")
-        log(f"[kernels] fk_contact_xy B={num}: max |err| {err:.3g}")
+            raise AssertionError(f"fk_contact_xy {what} B={num}: not "
+                                 f"bit-identical to the plain version, max "
+                                 f"|err| {err}")
+        log(f"[kernels] fk_contact_xy {what} B={num}: max |err| {err:.3g}")
         xy_err = max(xy_err, err)
-    check_same_bits("fk_contact_xy", lambda: sp.fk_xy_rows(mc, fk_in))
+    check_same_bits(f"fk_contact_xy {what}",
+                    lambda: sp.fk_xy_rows(mc, fk_in))
+    log(f"[kernels] substep kernel vs plain twin, {what}, max |err| "
+        f"{sub_err:.3g} (state rows {sub_state_err:.3g}); fk_contact_xy max "
+        f"|err| {xy_err:.3g}")
+    return in_rows, surf_rows, k_rows, fk_in, sub_err, xy_err
+
+
+def anymal_kernels(env, mc, pf_env, pf_state):
+    state, signal, push, tau = anymal_inputs(env, 6)
+    phys, params = state.physics, state.params
+    dt, grav = env.cfg.sim.dt, env.cfg.sim.gravity
+
+    xy, surface = check_route(env, phys, params, tau, push, "procedural")
+
+    in_rows, surf_rows, k_rows, fk_in, sub_err, xy_err = \
+        check_substep_and_fk_xy(mc, phys, params, tau, push, surface, dt,
+                                grav, "procedural terrain")
     check_fk_rows(mc, sp.pack_state(phys, phys.qvel), "ANYmal")
     nj, nc = mc.nj, mc.nc
-    log(f"[kernels] substep kernel vs plain twin, max |err| {sub_err:.3g} "
-        f"(state rows {sub_state_err:.3g}); "
-        f"fk_contact_xy max |err| {xy_err:.3g}")
 
     sub = dict(
         err=sub_err,
@@ -733,32 +825,45 @@ def anymal_kernels(env, mc, pf_env, pf_state):
 
 # ---------------------------------------------- 4. PointFoot at full width
 
-def pointfoot_rollout(env, mc, policy, xyz):
-    c = env.cfg.control
-    state = env.init_state(1)
+def timed_steps(env, state, act, steps: int, tag: str, label: str):
+    """One warm step from `state`, then `steps` timed env steps with the
+    launch counts zeroed just before them; logs the rate and checks the
+    final state.  `act(t, obs)` gives the actions of step t.  Returns
+    (state, out, launches)."""
     obs = torch.zeros(NUM_ENVS, env.num_obs, device=env.device)
-    state, out = env.step(state, policy(obs))
-    obs = out.obs
+    state, out = env.step(state, act(0, obs))
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
     falls = torch.zeros((), dtype=torch.int64, device=env.device)
-    for _ in range(ROLLOUT_STEPS):
-        state, out = env.step(state, policy(obs))
-        obs = out.obs
+    for t in range(1, steps + 1):
+        state, out = env.step(state, act(t, out.obs))
         falls += out.extras["terminate"].sum()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
+    check_finite(state, out.obs, NUM_ENVS, env.num_obs, label)
+    log(f"[{tag}] {label} {steps} steps x {NUM_ENVS} envs in {wall:.2f} s: "
+        f"{steps * NUM_ENVS / wall:.0f} env-steps/s, "
+        f"{wall / steps * 1e3:.2f} ms/step, terminations {int(falls)}, "
+        f"launches {launches}")
+    return state, out, launches
+
+
+def log_layers(label: str, layers: dict):
+    log(f"[layers] {label} ms: " + json.dumps(
+        {k: round(v, 3) for k, v in layers.items()}))
+
+
+def pointfoot_rollout(env, mc, policy, xyz):
+    c = env.cfg.control
+    state, out, launches = timed_steps(
+        env, env.init_state(1), lambda t, obs: policy(obs), ROLLOUT_STEPS,
+        "rollout", "pointfoot_rough")
     expect_counts(launches, rollout_substep=c.decimation * ROLLOUT_STEPS,
                   fk_from_state=ROLLOUT_STEPS)
-    check_finite(state, obs, NUM_ENVS, env.num_obs, "pointfoot rollout")
-    step_ms = wall / ROLLOUT_STEPS * 1e3
-    log(f"[rollout] pointfoot_rough {ROLLOUT_STEPS} steps x {NUM_ENVS} envs "
-        f"in {wall:.2f} s: {ROLLOUT_STEPS * NUM_ENVS / wall:.0f} "
-        f"env-steps/s, {step_ms:.2f} ms/step, terminations {int(falls)}, "
-        f"launches {launches}")
 
+    obs = out.obs
     acts = policy(obs)
     layers = {
         "env.step": cuda_ms(lambda: env.step(state, acts), 10),
@@ -770,8 +875,7 @@ def pointfoot_rollout(env, mc, policy, xyz):
         "height scan (121 points)": cuda_ms(
             lambda: env._measured_heights(state.physics), 10),
     }
-    log("[layers] pointfoot_rough ms: " + json.dumps(
-        {k: round(v, 3) for k, v in layers.items()}))
+    log_layers("pointfoot_rough", layers)
 
     probe_env = policy_eval.make_eval_env(
         "pointfoot_rough", NUM_ENVS, policy_eval.FLAGSHIP_PATCH)
@@ -787,27 +891,13 @@ def pointfoot_rollout(env, mc, policy, xyz):
 def anymal_rollout(env, lay):
     c = env.cfg.control
     signal = lay["signal"]
-    state = env.init_state(1)
-    state, out = env.step(state, signal(0))
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    falls = torch.zeros((), dtype=torch.int64, device=env.device)
-    for t in range(1, ANYMAL_STEPS + 1):
-        state, out = env.step(state, signal(t))
-        falls += out.extras["terminate"].sum()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts()
+    state, out, launches = timed_steps(
+        env, env.init_state(1), lambda t, obs: signal(t), ANYMAL_STEPS,
+        "anymal", "anymal_c_rough")
     expect_counts(launches, substep=c.decimation * ANYMAL_STEPS,
                   fk_contact_xy=c.decimation * ANYMAL_STEPS)
-    check_finite(state, out.obs, NUM_ENVS, env.num_obs, "anymal rollout")
     if not bool(torch.isfinite(out.reward).all()):
         raise AssertionError("anymal rollout: non-finite reward")
-    log(f"[anymal] anymal_c_rough {ANYMAL_STEPS} steps x {NUM_ENVS} envs in "
-        f"{wall:.2f} s: {ANYMAL_STEPS * NUM_ENVS / wall:.0f} env-steps/s, "
-        f"{wall / ANYMAL_STEPS * 1e3:.2f} ms/step, terminations "
-        f"{int(falls)}, launches {launches}")
 
     # where a step's time goes, by layer (CUDA events, same state)
     phys, params = state.physics, state.params
@@ -831,8 +921,7 @@ def anymal_rollout(env, lay):
         "height scan (187 points)": cuda_ms(
             lambda: env._measured_heights(phys), 10),
     }
-    log("[layers] anymal_c_rough ms: " + json.dumps(
-        {k: round(v, 3) for k, v in layers.items()}))
+    log_layers("anymal_c_rough", layers)
     return launches
 
 
@@ -1099,8 +1188,7 @@ def mpc_tick(pf_ctrl, kernel_ms: float):
         "tick with the sequential solver (plan_tick)": cuda_ms(
             lambda: pf_ctrl.plan_tick(phys, cmd), 3, warmup=1),
     }
-    log("[layers] SRB-MPC tick ms: " + json.dumps(
-        {k: round(v, 3) for k, v in layers.items()}))
+    log_layers("SRB-MPC tick", layers)
     return launches
 
 
@@ -1277,11 +1365,13 @@ def update_card_vs_cpu(runner, rollout: Transition, last_value):
         f"{moment:.3e} of their tensor's largest entry")
 
 
-def train_phase():
-    """PPO training of pointfoot_rough at full width (phase 10)."""
-    env = make_env("pointfoot_rough", num_envs=NUM_ENVS,
-                   cfg_patch=policy_eval.FLAGSHIP_PATCH)
-    runner = make_alg_runner(env, "pointfoot_rough")
+def train_phase(task: str, patch: dict, warm: int, timed: int, tag: str,
+                card_vs_cpu: bool):
+    """PPO training of `task` at full width, fresh from seed 0 with the
+    registry's PPO config (phases 10 and 13): `warm` iterations, then
+    `timed` ones; the launch counters around the first timed one."""
+    env = make_env(task, num_envs=NUM_ENVS, cfg_patch=patch)
+    runner = make_alg_runner(env, task)
     T = runner.cfg.runner.num_steps_per_env
     es = runner.init(0)
     es, out = env.step(es, torch.zeros(NUM_ENVS, env.num_actions,
@@ -1299,43 +1389,201 @@ def train_phase():
         return result
 
     runner.rollout = timed_rollout
-    timed, launches = [], None
-    for i in range(TRAIN_WARM + TRAIN_TIMED):
+    timed_its, launches = [], None
+    for i in range(warm + timed):
         count0 = runner.ppo.update_count
         torch.cuda.synchronize()
-        if i == TRAIN_WARM:
+        if i == warm:
             reset_counts()
         t0 = time.perf_counter()
         es, obs, priv, metrics = runner.train_iteration(es, obs, priv)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        if i == TRAIN_WARM:
+        if i == warm:
             launches = read_counts()
+            # plane terrain needs no sphere positions for a surface query
             expect_counts(launches,
                           rollout_substep=env.cfg.control.decimation * T,
-                          fk_from_state=T)
-        check_train_state(runner, count0, metrics, f"train iteration {i}")
-        if i >= TRAIN_WARM:
-            timed.append((t2 - t0, marks[-1] - t0, t2 - marks[-1]))
+                          fk_from_state=0 if env.is_plane else T)
+        check_train_state(runner, count0, metrics,
+                          f"{task} train iteration {i}")
+        if i >= warm:
+            timed_its.append((t2 - t0, marks[-1] - t0, t2 - marks[-1]))
     runner.rollout = rollout
     steps = T * NUM_ENVS
-    total = sum(t[0] for t in timed)
+    total = sum(t[0] for t in timed_its)
     m = {k: round(float(metrics[k]), 6) for k in (
         "kl", "learning_rate", "lr_intra", "noise_std", "value_loss",
         "surrogate_loss", "mean_reward")}
     m["lr"] = m.pop("learning_rate")
-    log(f"[train] pointfoot_rough PPO, {NUM_ENVS} envs x {T} steps, "
-        f"{TRAIN_TIMED} iterations after {TRAIN_WARM} warm in {total:.2f} s: "
-        f"{TRAIN_TIMED * steps / total:.0f} env-steps/s including the "
-        f"update; iteration s {[round(t[0], 4) for t in timed]}, rollout s "
-        f"{[round(t[1], 4) for t in timed]}, update s "
-        f"{[round(t[2], 4) for t in timed]}; launches in one iteration "
+    log(f"[{tag}] {task} PPO, {NUM_ENVS} envs x {T} steps, {timed} "
+        f"iterations after {warm} warm in {total:.2f} s: "
+        f"{timed * steps / total:.0f} env-steps/s including the update; "
+        f"iteration s {[round(t[0], 4) for t in timed_its]}, rollout s "
+        f"{[round(t[1], 4) for t in timed_its]}, update s "
+        f"{[round(t[2], 4) for t in timed_its]}; launches in one iteration "
         f"{launches}; last iteration {json.dumps(m)}")
-
+    if not card_vs_cpu:
+        return launches
     es, obs, priv, roll, _ = runner.rollout(es, obs, priv)
     with torch.no_grad():
         last_value = runner.network.value(priv)
     update_card_vs_cpu(runner, roll, last_value)
+    return launches
+
+
+# ------------------------------- 11. plane terrain, pointfoot_flat, 4096 envs
+
+def flat_phase(mc):
+    """pointfoot_flat with model_82000's actor and config patch: kernel 1
+    without surface rows against its plain version, the launch counts of
+    the plane path (no sphere-xyz FK), env-steps/s, layers, row 5's probe,
+    and anymal_c_flat's flat branch of step_batched."""
+    env = make_env("pointfoot_flat", num_envs=NUM_ENVS,
+                   cfg_patch=policy_eval.FLAT_PATCH)
+    if not (env.is_plane and env.height_fn.is_flat):
+        raise AssertionError("pointfoot_flat should be on plane terrain")
+    policy = policy_eval.inference_policy(
+        policy_eval.load_actor(env, "pointfoot_flat"))
+    state, actions = warm_with_push(env, policy, 7)
+    check_env_rollout(env, state, actions, "plane terrain")
+    c = env.cfg.control
+    state_rows = sp.pack_state(state.physics, state.last_qvel)
+    ctrl_rows = sp.pack_ctrl(actions, state.params, state.push_force)
+    step_args = (mc, state_rows, ctrl_rows, None, True,
+                 env.default_qpos_values, c.action_scale, c.control_type,
+                 env.cfg.sim.dt, env.cfg.sim.gravity)
+    step_err, state_err, force_err, _ = check_rollout_step(mc, step_args)
+    for num in RAGGED:
+        part = ragged_columns((state_rows, ctrl_rows), num)
+        errs = check_rollout_step(mc, (mc, *part) + step_args[3:])
+        log(f"[kernels] rollout_substep without surface rows B={num}: max "
+            f"|err| {errs[0]:.3g} (state rows {errs[1]:.3g}, forces "
+            f"{errs[2]:.3g})")
+    check_same_bits("rollout_substep without surface rows",
+                    lambda: sp.rollout_step(*step_args))
+    times = kernel_ms(lambda: sp.rollout_step(*step_args))
+    log(f"[kernels] rollout_substep without surface rows B={NUM_ENVS}: max "
+        f"|err| {step_err:.3g} (state rows {state_err:.3g}, forces "
+        f"{force_err:.3g}); {times['ms']:.4f} ms/launch on the device, "
+        f"{times['wrapper_ms']:.4f} in a loop of wrapper calls")
+
+    state, out, launches = timed_steps(
+        env, env.init_state(1), lambda t, obs: policy(obs), FLAT_STEPS,
+        "flat", "pointfoot_flat")
+    expect_counts(launches, rollout_substep=c.decimation * FLAT_STEPS)
+    obs = out.obs
+    acts = policy(obs)
+    layers = {
+        "env.step": cuda_ms(lambda: env.step(state, acts), 10),
+        "policy": cuda_ms(lambda: policy(obs), 20),
+        "physics rollout (4 kernel launches, no surface query)": cuda_ms(
+            lambda: env._physics_rollout(state, acts), 10),
+    }
+    log_layers("pointfoot_flat", layers)
+
+    probe_env = policy_eval.make_eval_env("pointfoot_flat", NUM_ENVS,
+                                          policy_eval.FLAT_PATCH)
+    rec = policy_eval.eval_config(probe_env, policy, None, 0.5, secs=6.0)
+    log(f"[probe] pointfoot_flat model_82000 {json.dumps(rec)}")
+    if not (rec["falls"] <= NUM_ENVS and rec["mean_vx"] >= 0.30):
+        raise AssertionError(f"flat probe outside its band: {rec}")
+
+    # anymal_c_flat: step_batched's mega-kernel route on flat ground, with
+    # no sphere-xy FK and no surface query
+    any_env = make_env("anymal_c_flat", num_envs=NUM_ENVS)
+    signal = bench_signal(any_env)
+    _, _, any_launches = timed_steps(
+        any_env, any_env.init_state(0), lambda t, obs: signal(t),
+        ANYMAL_FLAT_STEPS, "anymal-flat", "anymal_c_flat")
+    expect_counts(any_launches,
+                  substep=any_env.cfg.control.decimation * ANYMAL_FLAT_STEPS)
+    return dict(no_surface_ms=times["ms"],
+                no_surface_wrapper_ms=times["wrapper_ms"],
+                no_surface_max_abs_err=step_err,
+                no_surface_launches=launches["rollout_substep"])
+
+
+# ------------------------------------------ 12. table terrain, 4096 envs
+
+def table_phase(mc_pf, mc_any):
+    """pointfoot_rough with its registered config (table terrain) and
+    model_100000's actor: kernels 1-2 on the table's surface against their
+    plain versions, the launch counts, env-steps/s, layers and row 1's
+    probe; anymal_c_rough on the table: the mega-kernel route and kernels
+    3-4 against the plain path on the same surface rows; then bench.main_env
+    for both tasks."""
+    env = make_env("pointfoot_rough", num_envs=NUM_ENVS)
+    if env.cfg.terrain.procedural or env.is_plane:
+        raise AssertionError("pointfoot_rough's registered terrain is the "
+                             "table")
+    policy = policy_eval.inference_policy(
+        policy_eval.load_actor(env, "pointfoot_rough", MODEL_100000))
+    state, actions = warm_with_push(env, policy, 8)
+    check_env_rollout(env, state, actions, "table terrain")
+    c = env.cfg.control
+    state_rows = sp.pack_state(state.physics, state.last_qvel)
+    ctrl_rows = sp.pack_ctrl(actions, state.params, state.push_force)
+    xyz = sp.fk_rows_plain(mc_pf, state_rows)
+    surf_rows = sp.surface_rows(env.height_fn, xyz, mc_pf.nc)
+    step_args = (mc_pf, state_rows, ctrl_rows, surf_rows, True,
+                 env.default_qpos_values, c.action_scale, c.control_type,
+                 env.cfg.sim.dt, env.cfg.sim.gravity)
+    for num in (NUM_ENVS,) + RAGGED:
+        part = ragged_columns((state_rows, ctrl_rows, surf_rows), num)
+        errs = check_rollout_step(mc_pf, (mc_pf, *part) + step_args[4:])
+        log(f"[kernels] rollout_substep on table surface rows B={num}: max "
+            f"|err| {errs[0]:.3g} (state rows {errs[1]:.3g}, forces "
+            f"{errs[2]:.3g})")
+    check_fk_rows(mc_pf, state_rows, "PointFoot table terrain")
+
+    state, out, launches = timed_steps(
+        env, env.init_state(1), lambda t, obs: policy(obs), TABLE_STEPS,
+        "table", "pointfoot_rough (table)")
+    expect_counts(launches, rollout_substep=c.decimation * TABLE_STEPS,
+                  fk_from_state=TABLE_STEPS)
+    obs = out.obs
+    acts = policy(obs)
+    layers = {
+        "env.step": cuda_ms(lambda: env.step(state, acts), 10),
+        "policy": cuda_ms(lambda: policy(obs), 20),
+        "physics rollout (kernels + surface queries)": cuda_ms(
+            lambda: env._physics_rollout(state, acts), 10),
+        "surface query (one substep)": cuda_ms(
+            lambda: sp.surface_rows(env.height_fn, xyz, mc_pf.nc), 20),
+        "height scan (121 points)": cuda_ms(
+            lambda: env._measured_heights(state.physics), 20),
+    }
+    log_layers("pointfoot_rough table", layers)
+
+    probe_env = policy_eval.make_eval_env("pointfoot_rough", NUM_ENVS)
+    rec = policy_eval.eval_config(probe_env, policy, 0, 0.4, secs=6.0)
+    log(f"[probe] pointfoot_rough table model_100000 {json.dumps(rec)}")
+    if not (rec["falls"] <= NUM_ENVS and rec["mean_vx"] >= 0.20):
+        raise AssertionError(f"table probe outside its band: {rec}")
+
+    any_env = make_env("anymal_c_rough", num_envs=NUM_ENVS)
+    a_state, signal, push, tau = anymal_inputs(any_env, 9)
+    phys, params = a_state.physics, a_state.params
+    dt, grav = any_env.cfg.sim.dt, any_env.cfg.sim.gravity
+    _, surface = check_route(any_env, phys, params, tau, push, "table")
+    check_substep_and_fk_xy(mc_any, phys, params, tau, push, surface, dt,
+                            grav, "table terrain")
+    _, _, any_launches = timed_steps(
+        any_env, a_state, lambda t, obs: signal(t), ANYMAL_TABLE_STEPS,
+        "anymal-table", "anymal_c_rough (table)")
+    n = any_env.cfg.control.decimation * ANYMAL_TABLE_STEPS
+    expect_counts(any_launches, substep=n, fk_contact_xy=n)
+
+    for task in ("pointfoot_rough", "anymal_c_rough"):
+        rec = bench.main_env(task, NUM_ENVS, iters=BENCH_ITERS,
+                             reps=BENCH_REPS)
+        cond = rec["conditions"]
+        if not (rec["value"] > 0 and cond["table_steps_per_sec"] > 0):
+            raise AssertionError(f"bench record {rec}")
+        log(f"[bench-env] {task}: procedural {rec['value']:.1f} env-steps/s "
+            f"(reps {cond['reps_steps_per_sec']}, {cond['settle_iters']} "
+            f"settle iterations), table {cond['table_steps_per_sec']:.1f}")
 
 
 def main() -> int:
@@ -1379,12 +1627,20 @@ def main() -> int:
     mpc_launches = mpc_tick(pf_ctrl, lqr["ms"])
     srb_gate(a1_model)
     log(f"[t] MPC paths done at {time.perf_counter() - t_start:.1f} s")
-    train_phase()
+    train_phase("pointfoot_rough", policy_eval.FLAGSHIP_PATCH, TRAIN_WARM,
+                TRAIN_TIMED, "train", card_vs_cpu=True)
+    log(f"[t] training done at {time.perf_counter() - t_start:.1f} s")
+    flat = flat_phase(mc_pf)
+    log(f"[t] plane terrain done at {time.perf_counter() - t_start:.1f} s")
+    table_phase(mc_pf, mc_any)
+    log(f"[t] table terrain done at {time.perf_counter() - t_start:.1f} s")
+    train_phase("pointfoot_flat", policy_eval.FLAT_PATCH, FLAT_TRAIN_WARM,
+                FLAT_TRAIN_TIMED, "train-flat", card_vs_cpu=False)
 
     kernels = [
-        kernel_record("rollout_substep_kernel", SUBSTEP_SRC,
-                      "pointfoot_tpu/ops/pallas/substep.py:273",
-                      pf_launches["rollout_substep"], **roll),
+        dict(kernel_record("rollout_substep_kernel", SUBSTEP_SRC,
+                           "pointfoot_tpu/ops/pallas/substep.py:273",
+                           pf_launches["rollout_substep"], **roll), **flat),
         kernel_record("fk_from_state_kernel", SUBSTEP_SRC,
                       "pointfoot_tpu/ops/pallas/substep.py:328",
                       pf_launches["fk_from_state"], **fk),

@@ -1,15 +1,32 @@
-"""Benchmarks of the port (the `main_mpc` and `main_train` of the JAX
-package's bench.py).
+"""Benchmarks of the port (the `main`, `main_mpc` and `main_train` of the
+JAX package's bench.py).
 
+    python -m pointfoot_tpu_torch.bench --mode env
+    python -m pointfoot_tpu_torch.bench --mode actuator_net
     python -m pointfoot_tpu_torch.bench --mode train
     python -m pointfoot_tpu_torch.bench --mode mpc
     python -m pointfoot_tpu_torch.bench --mode mpc --solver plain
     python -m pointfoot_tpu_torch.bench --mode mpc --device cpu --num_envs 8
+    python -m pointfoot_tpu_torch.bench --mode env --device cpu \
+        --num_envs 2 --iters 1 --reps 1 --steps 2
 
 Each prints ONE JSON line {"metric", "value", "unit", "vs_baseline",
 "conditions"}; the value is the median of `--reps` repetitions of `--iters`
 iterations after a warm-up, timed by the host clock ending in
 `torch.cuda.synchronize`, and the conditions name the card.
+
+`--mode env`: env throughput of pointfoot_rough at `--num_envs` envs
+(4096) with its registered config, driven by the deterministic actions
+0.2 sin(phase + 0.1 t), the phase drawn anew for every iteration of
+`--steps` policy steps (24); the env's own randomness (resets, pushes,
+commands) runs.  The headline is procedural terrain: after one warm
+iteration, warm iterations until two consecutive ones agree within 15%
+(at most 8), then the median of `--reps` repetitions of `--iters`
+iterations (default 20); vs_baseline = env-steps/s over real time,
+num_envs x 50 Hz.  The table terrain is measured in the same run, one
+repetition at half the iterations, and recorded as the condition
+`table_steps_per_sec`.  `--mode actuator_net`: the same for
+anymal_c_rough, whose torques come from the ANYdrive network.
 
 `--mode train`: PPO training of pointfoot_rough on procedural terrain at
 `--num_envs` envs (4096), fresh from seed 0, with the registry's PPO config
@@ -28,8 +45,8 @@ kernel` (default) plans with the fused SRB-LQR kernel
 (`SRBController.plan_tick_cuda`), `--solver plain` with the sequential
 Riccati recursion (`plan_tick`).
 
-Runs on the GPU unless --device names another.  The other modes of the
-JAX package's bench.py are not ported yet.
+Runs on the GPU unless --device names another.  The `env_phases` and
+`mpc_ilqr` modes of the JAX package's bench.py are not ported yet.
 """
 
 from __future__ import annotations
@@ -49,9 +66,12 @@ from pointfoot_tpu_torch.physics.model import PhysicsParams, PhysicsState
 from pointfoot_tpu_torch.utils.policy_eval import FLAGSHIP_PATCH
 from pointfoot_tpu_torch.utils.registry import make_alg_runner, make_env
 
-MODES = ("env", "mpc", "mpc_ilqr", "actuator_net", "train")
+MODES = ("env", "env_phases", "mpc", "mpc_ilqr", "actuator_net", "train")
 SOLVERS = ("kernel", "plain")
-ITERS = {"mpc": 20, "train": 1}  # --iters by mode
+ITERS = {"env": 20, "actuator_net": 20, "mpc": 20, "train": 1}  # --iters
+ENV_TASKS = {"env": "pointfoot_rough", "actuator_net": "anymal_c_rough"}
+STEPS_PER_ITER = 24
+SETTLE_MAX, SETTLE_AGREE = 8, 0.15
 
 
 def card_line(device: torch.device) -> str:
@@ -121,6 +141,76 @@ def main_mpc(num_envs: int = 4096, iters: int = 20, reps: int = 3,
     return record
 
 
+def bench_env(task: str, procedural: bool, num_envs: int, iters: int,
+              reps: int, steps: int, device: torch.device):
+    """Env-steps/s of `task` on one terrain path: (median of the
+    repetitions, the repetitions, warm iterations of the settle loop)."""
+    env = make_env(task, num_envs=num_envs, device=device,
+                   cfg_patch=dict(terrain=dict(procedural=procedural)))
+    state = env.init_state(0)
+    g = torch.Generator(device=device).manual_seed(1)
+
+    def run(state):
+        phase = 6.28 * torch.rand(num_envs, env.num_actions, generator=g,
+                                  device=device)
+        for t in range(steps):
+            state, out = env.step(state, 0.2 * torch.sin(phase + 0.1 * t))
+        return state, out.reward
+
+    state, rew = run(state)
+    _sync(device)
+    prev, stable, settles = None, 0, 0
+    for settles in range(1, SETTLE_MAX + 1):
+        t0 = time.perf_counter()
+        state, rew = run(state)
+        _sync(device)
+        dt = time.perf_counter() - t0
+        if prev is not None and abs(dt - prev) / prev < SETTLE_AGREE:
+            stable += 1
+            if stable >= 2:
+                break
+        else:
+            stable = 0
+        prev = dt
+    rates = []
+    for _ in range(max(reps, 1)):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            state, rew = run(state)
+        _sync(device)
+        rates.append(num_envs * steps * iters / (time.perf_counter() - t0))
+    if not bool(torch.isfinite(rew).all()):
+        raise RuntimeError(f"{task}: non-finite rewards")
+    return sorted(rates)[len(rates) // 2], rates, settles
+
+
+def main_env(task: str = "pointfoot_rough", num_envs: int = 4096,
+             iters: int = 20, reps: int = 3, steps: int = STEPS_PER_ITER,
+             device=None) -> dict:
+    """The procedural headline and the table leg; returns (and prints)
+    the benchmark's record."""
+    device = resolve_device(device)
+    sps, rates, settles = bench_env(task, True, num_envs, iters, reps,
+                                    steps, device)
+    table_sps, _, table_settles = bench_env(
+        task, False, num_envs, max(iters // 2, 2), 1, steps, device)
+    record = {
+        "metric": f"env_steps_per_sec@{num_envs}envs_{task}",
+        "value": round(sps, 1),
+        "unit": "steps/s",
+        "vs_baseline": round(sps / (num_envs * 50.0), 4),
+        "conditions": {"terrain": "procedural",
+                       "settle_iters": settles,
+                       "reps_steps_per_sec": [round(r, 1) for r in rates],
+                       "table_steps_per_sec": round(table_sps, 1),
+                       "table_settle_iters": table_settles,
+                       "iters": iters, "steps_per_iter": steps,
+                       "card": card_line(device)},
+    }
+    print(json.dumps(record), flush=True)
+    return record
+
+
 def main_train(num_envs: int = 4096, iters: int = 1, reps: int = 3,
                device=None) -> dict:
     """Time PPO training iterations and return (and print) the record."""
@@ -180,6 +270,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--iters", type=int, default=None,
                     help=f"iterations a repetition (default {ITERS})")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--steps", type=int, default=STEPS_PER_ITER,
+                    help="policy steps an iteration (env modes)")
     ap.add_argument("--solver", choices=SOLVERS, default="kernel")
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
@@ -189,6 +281,9 @@ def main(argv=None) -> dict:
             f"\"The rest\": a GPU bench for the other modes of bench.py); "
             f"--mode {' and --mode '.join(ITERS)} run")
     iters = ITERS[args.mode] if args.iters is None else args.iters
+    if args.mode in ENV_TASKS:
+        return main_env(ENV_TASKS[args.mode], args.num_envs, iters,
+                        args.reps, args.steps, args.device)
     if args.mode == "train":
         return main_train(args.num_envs, iters, args.reps, args.device)
     return main_mpc(args.num_envs, iters, args.reps, args.solver,

@@ -3,7 +3,14 @@
 // fk_contact_pos, fk_contact_xy), replacing the body of the TPU kernel
 // _kernel of pointfoot_tpu/ops/pallas/substep.py:65: the same float32
 // operations, each sum in the same order, so a kernel and its plain version
-// round alike.
+// on the card agree bit for bit.  "The same order" is the plain version's
+// as torch runs it: its rows fold python constants (zero terms drop out,
+// constant terms are summed in float64 and added last, subtree masses are
+// float64 sums rounded once: pfr_cmass), it adds the terms of a sum one at
+// a time (the 6 x 6 inertia product, J'f0, D v), and CUDA's torch divides
+// by a python float as a product with its float32 reciprocal.  Stiff
+// contact amplifies a one-ulp difference in one substep to 1e-3 in qvel
+// three substeps on, so no sum is reordered.
 //
 // Bound.  A substep is about 18,000 float operations and 850 bytes an env
 // (ANYmal): a microsecond for 4096 envs at the card's float32 peak or its
@@ -214,15 +221,20 @@ constexpr int STRIDE = (END + 31 - LANES) / 32 * 32 + LANES;
 __device__ __forceinline__ void inertia_mul(const float* s, const float x[6],
                                             float out[6]) {
   const float h[3] = {s[1], s[2], s[3]};
-  float hv[3], hw[3];
-  cross3(h, x + 3, hv);
+  float hw[3];
   cross3(h, x, hw);
+  // rows 0-2 add the (h x) v terms one at a time, column by column, as
+  // the plain version's 6 x 6 product does
+  const float* v = x + 3;
+  float t[3];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    out[i] = s[4 + 3 * i] * x[0] + s[5 + 3 * i] * x[1] + s[6 + 3 * i] * x[2] +
-             hv[i];
-    out[3 + i] = s[0] * x[3 + i] - hw[i];
-  }
+  for (int i = 0; i < 3; ++i)
+    t[i] = s[4 + 3 * i] * x[0] + s[5 + 3 * i] * x[1] + s[6 + 3 * i] * x[2];
+  out[0] = (t[0] - h[2] * v[1]) + h[1] * v[2];
+  out[1] = (t[1] + h[2] * v[0]) - h[0] * v[2];
+  out[2] = (t[2] - h[1] * v[0]) + h[0] * v[1];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) out[3 + i] = s[0] * x[3 + i] - hw[i];
 }
 
 // [w; v] x [w2; v2] = [w x w2; w x v2 + v x w2]
@@ -341,7 +353,11 @@ __device__ __forceinline__ void body_inertia(int b, const float* Rm,
                  Rb[3 * i + 1] * pfr_inertia[b][3 + k] +
                  Rb[3 * i + 2] * pfr_inertia[b][6 + k];
   out[0] = m;
-  const float cc = dot3(cw, cw);
+  // (c x)(c x)': the diagonal sums the two other squares in the order of
+  // the plain version's product, the rest is -c_i c_k
+  const float d[3] = {cw[2] * cw[2] + cw[1] * cw[1],
+                      cw[2] * cw[2] + cw[0] * cw[0],
+                      cw[1] * cw[1] + cw[0] * cw[0]};
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     out[1 + i] = m * cw[i];
@@ -350,7 +366,7 @@ __device__ __forceinline__ void body_inertia(int b, const float* Rm,
       out[4 + 3 * i + k] =
           (RI[i][0] * Rb[3 * k] + RI[i][1] * Rb[3 * k + 1] +
            RI[i][2] * Rb[3 * k + 2]) +
-          m * ((i == k ? cc : 0.0f) - cw[i] * cw[k]);
+          m * (i == k ? d[i] : -(cw[i] * cw[k]));
   }
 }
 
@@ -472,7 +488,7 @@ __device__ __forceinline__ void substep_group(float* sl, int lane, float dt,
       const int j = i - 6;
       const float k_lim = 200.0f;
       const float qv = in[I_QVEL + j], qp = in[I_QPOS + j];
-      const float t = in[I_TAU + j] - in[I_JFRIC + j] * tanhf(qv / 0.05f);
+      const float t = in[I_TAU + j] - in[I_JFRIC + j] * tanhf(qv * (1.0f / 0.05f));
       const float over = maxp(qp - pfr_q_upper[j], 0.0f);
       const float under = maxp(pfr_q_lower[j] - qp, 0.0f);
       sl[U + i] = qv;
@@ -520,6 +536,9 @@ __device__ __forceinline__ void substep_group(float* sl, int lane, float dt,
       load6(Sm + 6 * j, Sj);
       load6(fsub + 6 * b, fb);
       sl[C + 6 + j] = dot6(Sj, fb);
+      // the subtree's mass as the plain version folds the constant masses,
+      // in float64 rounded once (a float32 running sum can differ by an ulp)
+      Isp[ISZ * b] = pfr_cmass[b];
       inertia_mul(Isp + ISZ * b, Sj, Fv);
       Am[(6 + j) * AST + 6 + j] = dot6(Sj, Fv);
       for (int i = p; i > 0; i = pfr_parent[i]) {
@@ -620,10 +639,10 @@ __device__ __forceinline__ void substep_group(float* sl, int lane, float dt,
 
     // depenetration-velocity cap: only the spring of penetration beyond the
     // static-rest band fades as the point exits; the band keeps its load
-    const float s_dep = clipp(1.0f - v_n / PF_MAX_DEPENETRATION_VEL, 0.0f,
+    const float s_dep = clipp(1.0f - v_n * (1.0f / PF_MAX_DEPENETRATION_VEL), 0.0f,
                               1.0f);
     const float s_band =
-        clipp(1.0f - 2.0f * (v_n / PF_MAX_DEPENETRATION_VEL - 1.0f), 0.0f,
+        clipp(1.0f - 2.0f * (v_n * (1.0f / PF_MAX_DEPENETRATION_VEL) - 1.0f), 0.0f,
               1.0f);
     const float k_c = in[I_KC], d_c = in[I_DC];
     const float pen_load = minp(pen, PF_PEN_REST);
@@ -698,9 +717,10 @@ __device__ __forceinline__ void substep_group(float* sl, int lane, float dt,
       float f = 0.0f;
       for (int c = 0; c < NC; ++c) {
         const float* sp = sl + SPH + SPSZ * c;
-        f += jac_base(sp + SP_P, 0, ci) * sp[SP_FS] +
-             jac_base(sp + SP_P, 1, ci) * sp[SP_FS + 1] +
-             jac_base(sp + SP_P, 2, ci) * sp[SP_FS + 2];
+        // term by term, as the plain version adds them
+        f += jac_base(sp + SP_P, 0, ci) * sp[SP_FS];
+        f += jac_base(sp + SP_P, 1, ci) * sp[SP_FS + 1];
+        f += jac_base(sp + SP_P, 2, ci) * sp[SP_FS + 2];
       }
       sl[JTF + ci] = f;
     }
@@ -720,8 +740,9 @@ __device__ __forceinline__ void substep_group(float* sl, int lane, float dt,
                              sp[SP_DJC + 2 * PF_MAXD + d]};
         const float jc[3] = {sp[SP_JC + d], sp[SP_JC + PF_MAXD + d],
                              sp[SP_JC + 2 * PF_MAXD + d]};
-        sl[JTF + cj] += jc[0] * sp[SP_FS] + jc[1] * sp[SP_FS + 1] +
-                        jc[2] * sp[SP_FS + 2];
+        sl[JTF + cj] += jc[0] * sp[SP_FS];
+        sl[JTF + cj] += jc[1] * sp[SP_FS + 1];
+        sl[JTF + cj] += jc[2] * sp[SP_FS + 2];
 #pragma unroll
         for (int ci = 0; ci < 3; ++ci) {
           Am[cj * AST + ci] += dt * (Jb[0][ci] * dj[0] + Jb[1][ci] * dj[1] +
@@ -832,13 +853,18 @@ __device__ __forceinline__ void substep_group(float* sl, int lane, float dt,
 #pragma unroll
       for (int r = 0; r < 3; ++r) v_new[r] += sp[SP_JC + PF_MAXD * r + d] * uj;
     }
-    const float vn = dot3(n, v_new);
+    // D v with D = d_n n n' + c_t (E - n n') formed as phase 4 formed it
     float f[3];
 #pragma unroll
     for (int r = 0; r < 3; ++r) {
-      // D v = d_n n (n.v) + c_t (v - n (n.v))
-      const float Dv =
-          sp[SP_DN] * n[r] * vn + sp[SP_CT] * (v_new[r] - n[r] * vn);
+      float Dv = 0.0f;
+#pragma unroll
+      for (int s = 0; s < 3; ++s) {
+        const float nn = n[r] * n[s];
+        const float D = sp[SP_DN] * nn +
+                        sp[SP_CT] * ((r == s ? 1.0f : 0.0f) - nn);
+        Dv = s == 0 ? D * v_new[0] : Dv + D * v_new[s];
+      }
       f[r] = sp[SP_FS + r] - Dv;
     }
     const float f_n = dot3(f, n);

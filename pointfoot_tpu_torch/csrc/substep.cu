@@ -165,11 +165,12 @@ __global__ void __launch_bounds__(SUB_THREADS) rollout_substep_kernel(
     const float qp = sl[slab::I_QPOS + j], qv = sl[slab::I_QVEL + j];
     float t;
     if (control_type == 0) {
-      t = in_c[C_KP + j] * (scaled + default_qpos.v[j] - qp) -
+      // the default angle last, as the plain version folds its constant
+      t = in_c[C_KP + j] * ((scaled - qp) + default_qpos.v[j]) -
           in_c[C_KD + j] * qv;
     } else if (control_type == 1) {
       t = in_c[C_KP + j] * (scaled - qv) -
-          in_c[C_KD + j] * ((qv - sl[slab::I_TAU + j]) / dt);
+          in_c[C_KD + j] * ((qv - sl[slab::I_TAU + j]) * (1.0f / dt));
     } else {
       t = scaled;
     }

@@ -2,11 +2,10 @@
 
 Frozen dataclasses, overlaid with `override` (base -> robot -> terrain
 variant).  Reward scales are a tuple of (name, scale); only non-zero
-entries select reward terms.  Only the fields the ported slices read are
-here; the JAX package's other knobs (command curriculum, low-command
-oversampling, alternative promotion/demotion rules, relative tracking
-width, ...) arrive with the slices that implement them.  The training
-config (policy, PPO algorithm, runner) is whole.
+entries select reward terms.  Every field that an env, training or
+evaluation path of either package reads is here, with the JAX package's
+name and default; the JAX dataclasses' fields that neither package reads
+(legged_gym's Isaac Gym settings) are left out.
 """
 
 from __future__ import annotations
@@ -14,7 +13,7 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
-from pointfoot_tpu_torch.terrain.procedural import TerrainCfg
+from pointfoot_tpu_torch.terrain.grid import TerrainCfg
 
 
 @dataclass(frozen=True)
@@ -23,17 +22,28 @@ class EnvCfg:
     num_observations: int = 27
     num_privileged_obs: Optional[int] = 148
     num_actions: int = 6
+    env_spacing: float = 3.0  # [m] origin lattice of plane terrain
     episode_length_s: float = 20.0
 
 
 @dataclass(frozen=True)
 class CommandsCfg:
+    # command curriculum: widen lin_vel_x by 0.5 a side, up to
+    # ±max_curriculum, when the episodes ending on an episode-length tick
+    # tracked above 80% of the tracking reward's scale
+    curriculum: bool = False
+    max_curriculum: float = 1.0
     resampling_time: float = 10.0
     heading_command: bool = True  # wz recomputed from heading error
     lin_vel_x: Tuple[float, float] = (-1.0, 1.0)
     lin_vel_y: Tuple[float, float] = (-1.0, 1.0)
     ang_vel_yaw: Tuple[float, float] = (-1.0, 1.0)
     heading: Tuple[float, float] = (-3.14, 3.14)
+    # with this probability a resampled vx is drawn from the band
+    # [0.2, low_cmd_band] of magnitudes, sign random, instead of the full
+    # range (0 = the reference's uniform draw)
+    low_cmd_oversample: float = 0.0
+    low_cmd_band: float = 0.4
 
 
 @dataclass(frozen=True)
@@ -84,6 +94,11 @@ class RewardsCfg:
     # reference semantics; healthy per-step magnitudes are O(1))
     clip_reward: float = 20.0
     tracking_sigma: float = 0.25
+    # command-relative tracking width: for v > 0 the lin-vel tracking
+    # width is tracking_sigma * clip(|cmd|^2 / v^2, 0.04, 1), equally
+    # selective in relative error at every command (0 = the reference's
+    # fixed width)
+    tracking_rel_vref: float = 0.0
     soft_dof_pos_limit: float = 0.97
     soft_dof_vel_limit: float = 0.9
     soft_torque_limit: float = 0.8

@@ -1,6 +1,7 @@
 """Vectorized legged-robot environment (pointfoot_tpu/envs/legged_env.py).
 
-PointFoot and LeggedRobot observation styles on procedural terrain.  `step`
+PointFoot and LeggedRobot observation styles on plane, table
+(terrain/grid.py) or procedural (terrain/procedural.py) terrain.  `step`
 is a state transition over dataclasses of tensors; resets, curricula,
 command resampling and pushes are masked updates, so a step never waits on
 the host.  Random draws come from the env's `torch.Generator`, seeded by
@@ -13,8 +14,12 @@ The decimation loop takes one of two paths, as the JAX env does
 (ops/cuda/substep.rollout_substeps) for PD control at MEGA_MIN_BATCH envs or
 more, else the scan path, a loop of physics/dynamics.step_batched substeps
 with the torque of the PD law or of the actuator network.  Either runs the
-CUDA kernels on the card and their plain versions on the CPU.  Not ported
-yet (later slices): plane and table terrain.
+CUDA kernels on the card and their plain versions on the CPU.  On plane
+terrain the physics sees flat ground at z = 0 (no surface query; the fused
+rollout runs without surface rows), there is no height scan, and the env
+origins lie on a square lattice: with as many levels as types, level and
+type come from one formula, so the origins fall on the lattice's diagonal,
+as in the JAX env (envs do not interact, so the physics is unaffected).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from pointfoot_tpu_torch.physics import actuator as act
 from pointfoot_tpu_torch.physics import dynamics
 from pointfoot_tpu_torch.physics.assets import get_model
 from pointfoot_tpu_torch.physics.model import PhysicsParams, PhysicsState
+from pointfoot_tpu_torch.terrain.grid import build_terrain, flat_grid
 from pointfoot_tpu_torch.terrain.procedural import build_procedural
 
 GRAVITY_VEC = (0.0, 0.0, -1.0)
@@ -92,11 +98,6 @@ class LeggedEnv:
         self.device = resolve_device(device)
         if cfg.obs_style not in ("pointfoot", "legged"):
             raise ValueError(f"unknown obs_style '{cfg.obs_style}'")
-        if cfg.terrain.mesh_type == "plane":
-            raise NotImplementedError("plane terrain is not ported yet")
-        if not cfg.terrain.procedural:
-            raise NotImplementedError(
-                "table terrain is not ported yet; set terrain.procedural=True")
         self.cfg = cfg
         dev = self.device
         self.model = get_model(cfg.asset.model_name).to(dev)
@@ -110,12 +111,18 @@ class LeggedEnv:
         self.max_episode_length_s = cfg.env.episode_length_s
         self.generator = torch.Generator(device=dev)
 
-        self.terrain = build_procedural(cfg.terrain, seed=0, device=dev)
-        terrain = self.terrain
-        hf = lambda x, y: terrain.height_at(x, y)  # noqa: E731
-        hf.is_flat = False
-        hf.surface_fn = terrain.surface_at
-        self.height_fn = hf
+        self.is_plane = cfg.terrain.mesh_type == "plane"
+        if self.is_plane:
+            side = int(np.ceil(np.sqrt(self.num_envs)))
+            self.terrain = flat_grid(
+                size=max(2 * side * cfg.env.env_spacing + 20, 60),
+                num_levels=side, num_types=side,
+                spacing=cfg.env.env_spacing, device=dev)
+        elif cfg.terrain.procedural:
+            self.terrain = build_procedural(cfg.terrain, seed=0, device=dev)
+        else:
+            self.terrain = build_terrain(cfg.terrain, seed=0, device=dev)
+        self.height_fn = self._height_fn()
 
         # per-joint static arrays from name-keyed config pairs
         def by_name(pairs, default=0.0):
@@ -163,7 +170,8 @@ class LeggedEnv:
         self.height_points = torch.from_numpy(np.stack(
             [gx.ravel(), gy.ravel(), np.zeros_like(gx.ravel())], -1)).to(dev)
         self.num_height_points = self.height_points.shape[0]
-        self.measure_heights = cfg.height_scan.measure_heights
+        self.measure_heights = (cfg.height_scan.measure_heights
+                                and not self.is_plane)
 
         # reward table: (name, scale * dt)
         scales = dict(cfg.rewards.scales)
@@ -277,7 +285,7 @@ class LeggedEnv:
         params = self._sample_params()
         max_init = min(self.cfg.terrain.max_init_terrain_level,
                        self.terrain.num_levels - 1)
-        if self.cfg.terrain.curriculum:
+        if self.cfg.terrain.curriculum and not self.is_plane:
             level = self._randint((B,), 0, max_init + 1)
         else:
             level = (torch.arange(B, device=dev)
@@ -329,6 +337,28 @@ class LeggedEnv:
                                                   device=dev))
 
     # ------------------------------------------------------------- internals
+
+    def _height_fn(self):
+        """The terrain as the physics reads it: a height function with
+        `is_flat` and a `surface_fn` (height and unit normal) attached; on
+        plane terrain the surface is z = 0 with normal (0, 0, 1)."""
+        terrain = self.terrain
+
+        def height(x, y):
+            return terrain.height_at(x, y)
+
+        height.is_flat = self.is_plane
+        if self.is_plane:
+            def surface(x, y):
+                n = torch.zeros(x.shape + (3,), dtype=x.dtype,
+                                device=x.device)
+                n[..., 2] = 1.0
+                return torch.zeros_like(x), n
+
+            height.surface_fn = surface
+        else:
+            height.surface_fn = terrain.surface_at
+        return height
 
     def _compute_torques(self, actions, qpos, qvel, last_qvel, params):
         """PD torque law (P, V or T), clipped to the effort limits."""
@@ -411,6 +441,8 @@ class LeggedEnv:
         return self.terrain.height_scan_at(pts[..., 0], pts[..., 1])
 
     def _feet_heights(self, foot_pos: torch.Tensor) -> torch.Tensor:
+        if self.is_plane:
+            return foot_pos[..., 2]
         h = self.terrain.height_scan_at(foot_pos[..., 0], foot_pos[..., 1])
         return foot_pos[..., 2] - h
 
@@ -667,6 +699,13 @@ class LeggedEnv:
         need = need & ~state.cmd_pinned
         lo, hi = state.lin_vel_x_range[0], state.lin_vel_x_range[1]
         vx = self._uniform((B,), lo, hi)
+        if cfg.low_cmd_oversample > 0.0:
+            # a share of the draws lands in the magnitudes [0.2, band]
+            mag = self._uniform((B,), 0.2, cfg.low_cmd_band)
+            sign = torch.where(self._uniform((B,), 0.0, 1.0) < 0.5, -1.0,
+                               1.0)
+            use_low = self._uniform((B,), 0.0, 1.0) < cfg.low_cmd_oversample
+            vx = torch.where(use_low, sign * mag, vx)
         vy = self._uniform((B,), *cfg.lin_vel_y)
         cmds = state.commands.clone()
         cmds[:, 0] = torch.where(need, vx, cmds[:, 0])
@@ -708,18 +747,31 @@ class LeggedEnv:
         # ---- terrain curriculum
         level = state.terrain_level
         origin = state.env_origin
-        if cfg.terrain.curriculum:
+        if cfg.terrain.curriculum and not self.is_plane:
             dist = torch.linalg.vector_norm(
                 state.physics.base_pos[:, :2] - state.env_origin[:, :2],
                 dim=-1)
             cmd_speed = torch.linalg.vector_norm(state.commands[:, :2],
                                                  dim=-1)
-            move_up = dist > terrain.terrain_length / 2
-            # demotion: required distance scaled by the seconds the episode
-            # actually ran, judged on the along-command progress credit
-            ep_secs = state.episode_step.to(torch.float32) * self.dt
-            cmd_dist = cmd_speed * ep_secs * 0.5
-            move_down = (state.cmd_progress < cmd_dist) & ~move_up
+            if cfg.terrain.cmd_conditioned_promotion:
+                # the required distance scales with the commanded speed
+                required = torch.clamp(
+                    0.5 * cmd_speed * self.max_episode_length_s,
+                    2.0, terrain.terrain_length / 2)
+                move_up = dist > required
+            else:
+                move_up = dist > terrain.terrain_length / 2
+            if cfg.terrain.reference_exact_demotion:
+                # the reference's rule: the full episode length, judged on
+                # net displacement
+                cmd_dist = cmd_speed * self.max_episode_length_s * 0.5
+                move_down = (dist < cmd_dist) & ~move_up
+            else:
+                # the required distance scaled by the seconds the episode
+                # ran, judged on the along-command progress credit
+                ep_secs = state.episode_step.to(torch.float32) * self.dt
+                cmd_dist = cmd_speed * ep_secs * 0.5
+                move_down = (state.cmd_progress < cmd_dist) & ~move_up
             new_level = level + move_up.long() - move_down.long()
             rand_level = self._randint((B,), 0, terrain.num_levels)
             new_level = torch.where(new_level >= terrain.num_levels,
@@ -727,12 +779,32 @@ class LeggedEnv:
             level = torch.where(done, new_level, level)
             origin = terrain.env_origins[level, state.terrain_type]
 
+        # ---- command curriculum: widen the vx range on an episode-length
+        # tick when the episodes ending there tracked well
+        rng_range = state.lin_vel_x_range
+        if cfg.commands.curriculum:
+            idx = self.reward_names.index("tracking_lin_vel")
+            track_scale = dict(self.reward_terms)["tracking_lin_vel"]
+            n_done = done.sum()
+            mean_track = torch.where(done, state.episode_sums[:, idx],
+                                     0.0).sum() / torch.clamp_min(n_done, 1)
+            trigger = (((state.common_step % self.max_episode_length) == 0)
+                       & (n_done > 0)
+                       & (mean_track / self.max_episode_length
+                          > 0.8 * track_scale))
+            mc = cfg.commands.max_curriculum
+            widened = torch.stack([
+                torch.clamp(rng_range[0] - 0.5, -mc, 0.0),
+                torch.clamp(rng_range[1] + 0.5, 0.0, mc)])
+            rng_range = torch.where(trigger, widened, rng_range)
+
         # ---- state resets
         qpos_new = self.default_qpos * self._uniform((B, m.nj), 0.5, 1.5)
         base_pos_new = origin + origin.new_tensor(cfg.init_state.pos)
-        base_pos_new = torch.cat([
-            base_pos_new[:, :2] + self._uniform((B, 2), -1.0, 1.0),
-            base_pos_new[:, 2:]], dim=-1)
+        if not self.is_plane:
+            base_pos_new = torch.cat([
+                base_pos_new[:, :2] + self._uniform((B, 2), -1.0, 1.0),
+                base_pos_new[:, 2:]], dim=-1)
         vel6 = self._uniform((B, 6), -0.5, 0.5)
         quat_new = origin.new_tensor(cfg.init_state.rot).expand(B, 4)
 
@@ -755,6 +827,7 @@ class LeggedEnv:
 
         state = state.replace(
             physics=phys, terrain_level=level, env_origin=origin,
+            lin_vel_x_range=rng_range,
             episode_step=torch.where(done, 0, state.episode_step),
             cmd_progress=torch.where(done, 0.0, state.cmd_progress),
             actions=clear(state.actions),
@@ -774,6 +847,33 @@ class LeggedEnv:
         return self._resample_commands(state, done)
 
     # ---------------------------------------------------------- external pins
+
+    def update_frictions(self, state: EnvState, friction) -> EnvState:
+        """Pin the per-joint dry friction: a scalar, (nj,) or (B, nj)."""
+        f = torch.as_tensor(friction, dtype=torch.float32,
+                            device=self.device).expand(
+                                state.params.joint_friction.shape)
+        return state.replace(params=dataclasses.replace(
+            state.params, joint_friction=f.clone()))
+
+    def update_ground_friction(self, state: EnvState, friction) -> EnvState:
+        """Pin the ground friction of every collision sphere."""
+        f = torch.as_tensor(friction, dtype=torch.float32,
+                            device=self.device).expand(
+                                state.params.friction.shape)
+        return state.replace(params=dataclasses.replace(
+            state.params, friction=f.clone()))
+
+    def update_added_mass_and_base_com(self, state: EnvState, added_mass,
+                                       com_offset) -> EnvState:
+        """Pin the base payload and the base CoM shift."""
+        p = state.params
+        am = torch.as_tensor(added_mass, dtype=torch.float32,
+                             device=self.device).expand(p.added_mass.shape)
+        co = torch.as_tensor(com_offset, dtype=torch.float32,
+                             device=self.device).expand(p.com_offset.shape)
+        return state.replace(params=dataclasses.replace(
+            p, added_mass=am.clone(), com_offset=co.clone()))
 
     def update_cmd(self, state: EnvState, cmd) -> EnvState:
         """Pin commands from outside (evaluation, sys-ID)."""
@@ -867,7 +967,12 @@ def _reward_torque_limits(env, ctx):
 def _reward_tracking_lin_vel(env, ctx):
     cmd = ctx["state"].commands[:, :2]
     err = _sq(cmd - ctx["base_lin_vel"][:, :2]).sum(-1)
-    return torch.exp(-err / env.cfg.rewards.tracking_sigma)
+    sigma = env.cfg.rewards.tracking_sigma
+    vref = env.cfg.rewards.tracking_rel_vref
+    if vref > 0.0:  # a width relative to the command; 0 = fixed width
+        sigma = sigma * torch.clamp(_sq(cmd).sum(-1) / (vref * vref),
+                                    0.04, 1.0)
+    return torch.exp(-err / sigma)
 
 
 def _reward_tracking_ang_vel(env, ctx):

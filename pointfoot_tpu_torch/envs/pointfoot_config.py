@@ -1,12 +1,14 @@
-"""PointFoot (LimX PF_P441A) rough-terrain task config
+"""PointFoot (LimX PF_P441A) task configs, rough and flat
 (pointfoot_tpu/envs/pointfoot_config.py)."""
 
+from dataclasses import replace
+
 from pointfoot_tpu_torch.envs.config import (
-    AlgorithmCfg, AssetCfg, CommandsCfg, ControlCfg, DomainRandCfg, EnvCfg, HeightScanCfg,
-    InitStateCfg, LeggedEnvCfg, NoiseCfg, NormalizationCfg, PolicyCfg,
-    RewardsCfg, RunnerCfg, SimCfg, TrainCfg,
+    AlgorithmCfg, AssetCfg, CommandsCfg, ControlCfg, DomainRandCfg, EnvCfg,
+    HeightScanCfg, InitStateCfg, LeggedEnvCfg, NoiseCfg, NormalizationCfg,
+    PolicyCfg, RewardsCfg, RunnerCfg, SimCfg, TrainCfg, override,
 )
-from pointfoot_tpu_torch.terrain.procedural import TerrainCfg
+from pointfoot_tpu_torch.terrain.grid import TerrainCfg
 
 _JOINTS = ("abad_L_Joint", "hip_L_Joint", "knee_L_Joint",
            "abad_R_Joint", "hip_R_Joint", "knee_R_Joint")
@@ -49,8 +51,9 @@ POINTFOOT_ROUGH_CFG = LeggedEnvCfg(
         terrain_proportions=(0.1, 0.1, 0.35, 0.25, 0.2),
     ),
     commands=CommandsCfg(
-        resampling_time=10.0, heading_command=True, lin_vel_x=(-1.0, 1.0),
-        lin_vel_y=(-0.2, 0.2), ang_vel_yaw=(-1.0, 1.0), heading=(-3.14, 3.14),
+        curriculum=False, resampling_time=10.0, heading_command=True,
+        lin_vel_x=(-1.0, 1.0), lin_vel_y=(-0.2, 0.2), ang_vel_yaw=(-1.0, 1.0),
+        heading=(-3.14, 3.14),
     ),
     init_state=InitStateCfg(
         pos=(0.0, 0.0, 0.62),
@@ -86,6 +89,23 @@ POINTFOOT_ROUGH_CFG = LeggedEnvCfg(
     obs_style="pointfoot",
 )
 
+# the flat variant: plane terrain, no height scan, no heading command
+POINTFOOT_FLAT_CFG = override(
+    POINTFOOT_ROUGH_CFG,
+    env=dict(num_privileged_obs=27),
+    terrain=dict(mesh_type="plane", curriculum=False),
+    height_scan=dict(measure_heights=False),
+    commands=dict(heading_command=False, resampling_time=4.0,
+                  ang_vel_yaw=(-1.5, 1.5)),
+    domain_rand=dict(friction_range=(0.0, 1.5)),
+    rewards=dict(
+        max_contact_force=350.0,
+        scales=tuple(
+            dict(_ROUGH_SCALES, feet_air_time=5.0,
+                 unbalance_feet_air_time=1.0).items()),
+    ),
+)
+
 POINTFOOT_ROUGH_PPO = TrainCfg(
     seed=1,
     policy=PolicyCfg(init_noise_std=1.0,
@@ -95,4 +115,13 @@ POINTFOOT_ROUGH_PPO = TrainCfg(
     algorithm=AlgorithmCfg(),
     runner=RunnerCfg(num_steps_per_env=24, max_iterations=100000,
                      save_interval=100, experiment_name="pointfoot_rough"),
+)
+
+POINTFOOT_FLAT_PPO = replace(
+    POINTFOOT_ROUGH_PPO,
+    policy=replace(POINTFOOT_ROUGH_PPO.policy,
+                   actor_hidden_dims=(128, 64, 32),
+                   critic_hidden_dims=(128, 64, 32)),
+    runner=replace(POINTFOOT_ROUGH_PPO.runner,
+                   experiment_name="pointfoot_flat", max_iterations=30000),
 )

@@ -14,7 +14,7 @@ from pointfoot_tpu_torch.envs.config import (
     HeightScanCfg, InitStateCfg, LeggedEnvCfg, NoiseCfg, NormalizationCfg,
     PolicyCfg, RewardsCfg, RunnerCfg, SimCfg, TrainCfg, override,
 )
-from pointfoot_tpu_torch.terrain.procedural import TerrainCfg
+from pointfoot_tpu_torch.terrain.grid import TerrainCfg
 
 # base legged_gym reward scales
 _LR_SCALES = (

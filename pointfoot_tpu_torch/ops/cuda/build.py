@@ -28,6 +28,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
+import numpy as np
+
 from pointfoot_tpu_torch.physics.contact import MAX_DEPENETRATION_VEL, PEN_REST
 from pointfoot_tpu_torch.physics.rowdyn import ModelConsts
 
@@ -49,8 +51,11 @@ _F = ctypes.c_float
 
 
 def _f(v: float) -> str:
-    """A float literal of v (python's repr always has a '.' or an 'e')."""
-    return f"{float(v)!r}f"
+    """A float literal of v rounded to float32 as torch rounds a python
+    float, written exactly (python's repr always has a '.' or an 'e'): the
+    compiler's own rounding of the decimal can land on the other neighbour
+    of a value halfway between two floats."""
+    return f"{float(np.float32(v))!r}f"
 
 
 def _lit(v, ctype: str) -> str:
@@ -98,6 +103,17 @@ def branches(mc: ModelConsts):
     spheres = [[c for c, b in enumerate(mc.collision_body)
                 if b > 0 and root[b] == f] for f in firsts]
     return bodies, spheres
+
+
+def composite_masses(mc: ModelConsts) -> List[float]:
+    """Mass of each body's subtree, summed in float64 over the bodies in
+    descending order as physics/rowdyn.py folds its constant masses (the
+    base's is its own: its added mass makes it a row there)."""
+    cm = list(mc.mass)
+    for b in range(mc.nb - 1, 0, -1):
+        if mc.parent[b] > 0:
+            cm[mc.parent[b]] += cm[b]
+    return cm
 
 
 def model_header(mc: ModelConsts) -> str:
@@ -165,6 +181,7 @@ def model_header(mc: ModelConsts) -> str:
         _array("effort_limit", mc.effort_limit, [nj]),
         _array("joint_damping", mc.joint_damping, [nj]),
         _array("mass", mc.mass, [nb]),
+        _array("cmass", composite_masses(mc), [nb]),
         _array("com", mc.com, [nb, 3]),
         _array("inertia", flat9(mc.inertia), [nb, 9]),
         _array("coll_offset", mc.collision_offset, [nc, 3]),

@@ -12,34 +12,14 @@ The same code runs on python ints.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 
+from pointfoot_tpu_torch.terrain.grid import TerrainCfg
+
 _M32 = 0xFFFFFFFF
-
-
-@dataclass(frozen=True)
-class TerrainCfg:
-    """Terrain config (pointfoot_tpu/terrain/grid.py TerrainCfg), the
-    fields the procedural terrain and the env's curriculum read."""
-
-    mesh_type: str = "trimesh"  # 'plane' | 'heightfield' | 'trimesh'
-    horizontal_scale: float = 0.1  # [m] cell size
-    border_size: float = 25.0  # [m]
-    curriculum: bool = True
-    static_friction: float = 1.0  # ground friction when not randomized
-    terrain_length: float = 8.0
-    terrain_width: float = 8.0
-    num_rows: int = 10  # difficulty levels
-    num_cols: int = 20  # terrain types
-    max_init_terrain_level: int = 5
-    terrain_proportions: Tuple[float, ...] = (0.1, 0.1, 0.35, 0.25, 0.2)
-    # cap on the stairs_up step height (m); None = reference-exact
-    stairs_up_height_cap: Optional[float] = None
-    # closed-form hashed terrain (this module) instead of numpy tables
-    procedural: bool = False
 
 
 # ------------------------------------------------------------------ hashing

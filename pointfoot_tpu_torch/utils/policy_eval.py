@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -20,13 +20,22 @@ from pointfoot_tpu_torch.rl.networks import ActorCritic
 from pointfoot_tpu_torch.utils.convert import actor_critic_state_dict
 from pointfoot_tpu_torch.utils.registry import get_cfgs, make_env
 
+WEIGHTS = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_weights")
 # actor + log_std of logs/pointfoot_rough/tpu_r4_storm/model_234000, the
 # flagship rough policy (trained at 4096 envs on procedural terrain)
-FLAGSHIP_ACTOR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "_weights", "pointfoot_rough_model_234000_actor.npz")
+FLAGSHIP_ACTOR = os.path.join(WEIGHTS,
+                              "pointfoot_rough_model_234000_actor.npz")
 # the configuration the flagship trained on
 FLAGSHIP_PATCH = dict(terrain=dict(procedural=True))
+# logs/pointfoot_flat/tpu_r5_os/model_82000, the newest flat policy, and
+# the reward and command knobs it trained under (its run_config.jsonl)
+FLAT_ACTOR = os.path.join(WEIGHTS, "pointfoot_flat_model_82000_actor.npz")
+FLAT_PATCH = dict(rewards=dict(tracking_rel_vref=1.0),
+                  commands=dict(low_cmd_oversample=0.35, low_cmd_band=0.6))
+# each committed task's default actor
+DEFAULT_ACTORS = {"pointfoot_rough": FLAGSHIP_ACTOR,
+                  "pointfoot_flat": FLAT_ACTOR}
 
 
 def make_eval_env(task: str, num_envs: int,
@@ -39,15 +48,26 @@ def make_eval_env(task: str, num_envs: int,
     return make_env(task, num_envs=num_envs, device=device, cfg_patch=patch)
 
 
-def load_actor(env, task: str, path: str = FLAGSHIP_ACTOR) -> ActorCritic:
+def load_actor(env, task: str, path: Optional[str] = None) -> ActorCritic:
     """ActorCritic of `task` on the env's device with the actor and log_std
-    from an npz of flax-named arrays; the critic keeps its initial values."""
+    of `path` (default: the task's committed actor, DEFAULT_ACTORS): an npz
+    of flax-named arrays or the port's `model_<it>.pt`.  From an npz the
+    critic keeps its initial values."""
+    if path is None:
+        if task not in DEFAULT_ACTORS:
+            raise KeyError(f"no committed actor for task '{task}'; "
+                           f"committed: {sorted(DEFAULT_ACTORS)}")
+        path = DEFAULT_ACTORS[task]
     p = get_cfgs(task)[1].policy
     net = ActorCritic(env.num_obs, env.num_privileged_obs or env.num_obs,
                       env.num_actions, p.actor_hidden_dims,
                       p.critic_hidden_dims, p.activation, p.init_noise_std)
-    with np.load(path) as f:
-        sd = actor_critic_state_dict({k: f[k] for k in f.files})
+    if path.endswith(".pt"):
+        raw = torch.load(path, map_location="cpu", weights_only=True)
+        sd = raw["train_state"]["params"]
+    else:
+        with np.load(path) as f:
+            sd = actor_critic_state_dict({k: f[k] for k in f.files})
     missing, unexpected = net.load_state_dict(sd, strict=False)
     if unexpected or any(not k.startswith("critic.") for k in missing):
         raise KeyError(f"{path}: missing {missing}, unexpected {unexpected}")
@@ -117,3 +137,18 @@ def eval_config(env, policy, level, vx_cmd, wz_cmd=0.0, secs=10.0,
         "cmd_wz": float(wz_cmd),
         "mean_wz": round(float(wz_sum) / max(n_vel, 1), 3),
     }
+
+
+def eval_checkpoint(task: str, load_run: Optional[str], levels: Sequence,
+                    vx_list: Sequence[float], num_envs: int = 16,
+                    secs: float = 10.0, wz: float = 0.0,
+                    cfg_patch: Optional[dict] = None, device=None) -> list:
+    """Every (level, vx) configuration for one actor (`load_actor`'s
+    `path`); plane terrain has no levels and evaluates level None only."""
+    env = make_eval_env(task, num_envs, cfg_patch, device)
+    policy = inference_policy(load_actor(env, task, load_run))
+    results = []
+    for level in ([None] if env.is_plane else levels):
+        for vx_cmd in vx_list:
+            results.append(eval_config(env, policy, level, vx_cmd, wz, secs))
+    return results

@@ -13,6 +13,7 @@ from pointfoot_tpu_torch.envs.legged_env import LeggedEnv
 
 TASKS: Dict[str, Tuple[LeggedEnvCfg, TrainCfg]] = {
     "pointfoot_rough": (pf.POINTFOOT_ROUGH_CFG, pf.POINTFOOT_ROUGH_PPO),
+    "pointfoot_flat": (pf.POINTFOOT_FLAT_CFG, pf.POINTFOOT_FLAT_PPO),
     **robot_configs.TASKS,
 }
 

@@ -10,6 +10,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 from pointfoot_tpu_torch.ops.cuda import build
 from pointfoot_tpu_torch.ops.cuda import substep as sp
@@ -315,3 +316,66 @@ def test_cholesky_cpu_route_is_linalg_chol_solve(n, num):
     assert torch.equal(ch.chol_solve(A, b), want)
     assert torch.equal(ch.chol_solve_best(A, b), want)
     assert ch.chol_solve_lanes.launches == before
+
+
+def test_float_literals_are_the_float32_torch_rounds_to():
+    """A float64 constant halfway between two float32s (Cassie's subtree
+    mass of bodies 5 and 6) is written as the float32 that torch makes of
+    the python float, exactly; the decimal repr of the float64 would have
+    the compiler round to the other neighbour."""
+    from fractions import Fraction
+
+    m = sp.model_consts(get_model("cassie"))
+    tie = m.mass[5] + m.mass[6]
+    want = float(np.float32(tie))
+    assert float(torch.tensor([1.0]).mul(tie)[0]) == want
+    # the shortest decimal of the float64 lies nearer the other float32
+    # neighbour, where a compiler parsing it straight to float would land
+    other = float(np.nextafter(np.float32(want), np.float32(0.0)))
+    dec = Fraction(repr(tie))
+    assert abs(dec - Fraction(other)) < abs(dec - Fraction(want))
+    lit = build._f(tie)
+    assert lit.endswith("f") and float(lit[:-1]) == want
+    # and the literal's decimal lies nearest to the float32 torch uses
+    dec = Fraction(lit[:-1])
+    for nb in (other, float(np.nextafter(np.float32(want), np.float32(2.0)))):
+        assert abs(dec - Fraction(want)) < abs(dec - Fraction(nb))
+
+
+@pytest.mark.parametrize("robot", ["pointfoot", "anymal_c", "a1", "cassie"])
+def test_composite_masses_fold_as_the_plain_version(robot):
+    """pfr_cmass holds each subtree's mass summed in float64 in descending
+    body order, as physics/rowdyn.py folds the constant masses of its CRBA
+    (the base keeps its own mass: its added mass is a row there)."""
+    m = sp.model_consts(get_model(robot))
+    cm = build.composite_masses(m)
+    ic = {b: m.mass[b] for b in range(m.nb)}
+    for b in range(m.nb - 1, 0, -1):
+        if m.parent[b] > 0:
+            ic[m.parent[b]] = ic[m.parent[b]] + ic[b]
+    assert cm == [ic[b] for b in range(m.nb)]
+    assert cm[0] == m.mass[0]
+    h = build.model_header(m)
+    assert f"pfr_cmass[{m.nb}] = " in h
+
+
+def test_kernel_sums_in_the_plain_versions_order():
+    """Source checks of the sum orders that make the substep kernels round
+    as physics/rowdyn.py does: J'f0 term by term, the PD law's default
+    angle last, D v from the D matrix, divisions by constants as products
+    with the float32 reciprocal (torch's CUDA division by a python float),
+    the composite masses from the header."""
+    with open(os.path.join(build.CSRC, "rowdyn.cuh")) as f:
+        src = f.read()
+    with open(os.path.join(build.CSRC, "substep.cu")) as f:
+        sub = f.read()
+    assert "f += jac_base(sp + SP_P, 0, ci) * sp[SP_FS];" in src
+    assert "sl[JTF + cj] += jc[0] * sp[SP_FS];" in src
+    assert "tanhf(qv * (1.0f / 0.05f))" in src
+    assert "v_n * (1.0f / PF_MAX_DEPENETRATION_VEL)" in src
+    assert "Isp[ISZ * b] = pfr_cmass[b];" in src
+    assert "Dv = s == 0 ? D * v_new[0] : Dv + D * v_new[s];" in src
+    assert "((scaled - qp) + default_qpos.v[j])" in sub
+    assert "* (1.0f / dt)" in sub
+    assert not re.search(r"\) / dt\)", sub)
+    assert "qv / 0.05f" not in src and "v_n / PF_MAX" not in src

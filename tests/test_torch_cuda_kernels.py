@@ -22,6 +22,8 @@ pytestmark = pytest.mark.cuda
 # leave the last block with idle groups: one item, and a prime above 4096
 B = 1000
 RAGGED = (1, 4099)
+# every baked model: each builds its own kernels from its model header
+ROBOTS = ("pointfoot", "anymal_c", "anymal_b", "a1", "cassie")
 
 
 def _columns(t, num):
@@ -31,11 +33,29 @@ def _columns(t, num):
     return torch.cat([t] * reps, dim=1)[:, :num].contiguous()
 
 
-@pytest.fixture(scope="module")
-def rows():
+def _default_qpos(nj: int):
+    return tuple((0.1, 0.0, -0.1, 0.0, 0.2, 0.0)[i % 6] for i in range(nj))
+
+
+def _assert_rollout_close(mc, ks, ke, ps, pe):
+    """Within the JAX tests' tolerances, and bit for bit: the kernel does
+    its plain version's float32 operations in the same order."""
+    nj, nc = mc.nj, mc.nc
+    torch.testing.assert_close(ks, ps, atol=2e-3, rtol=0)
+    torch.testing.assert_close(ke[:nj], pe[:nj], atol=5e-3, rtol=0)
+    torch.testing.assert_close(ke[nj:nj + 3 * nc], pe[nj:nj + 3 * nc],
+                               atol=0.05, rtol=1e-3)
+    torch.testing.assert_close(ke[nj + 3 * nc:], pe[nj + 3 * nc:],
+                               atol=5e-5, rtol=0)
+    assert torch.equal(ks, ps) and torch.equal(ke, pe)
+
+
+@pytest.fixture(scope="module", params=ROBOTS)
+def rows(request):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    mc = sp.model_consts(get_model("pointfoot"))
+    mc = sp.model_consts(get_model(request.param))
+    nj, nc = mc.nj, mc.nc
     rng = np.random.default_rng(1)
 
     def r(n, s, o=0.0):
@@ -45,17 +65,17 @@ def rows():
     q[3] += 1.0
     q /= np.linalg.norm(q, axis=0)
     state = np.concatenate([r(2, 0.5), 0.42 + 0.25 * rng.random((1, B)), q,
-                            r(3, 0.5), r(3, 0.8), r(6, 0.4), r(6, 1.5),
-                            r(6, 1.5)])
+                            r(3, 0.5), r(3, 0.8), r(nj, 0.4), r(nj, 1.5),
+                            r(nj, 1.5)])
     ctrl = np.concatenate([
-        r(6, 0.5), np.full((6, B), 40.0), np.full((6, B), 1.5),
-        0.2 + 1.2 * rng.random((9, B)), 0.1 * rng.random((6, B)),
+        r(nj, 0.5), np.full((nj, B), 40.0), np.full((nj, B), 1.5),
+        0.2 + 1.2 * rng.random((nc, B)), 0.1 * rng.random((nj, B)),
         r(1, 0.5), r(3, 0.03), np.full((1, B), 1.2e4),
         np.full((1, B), 1.2e3), r(3, 20.0)])
     n = r(3, 0.15)
     n[2] = 1.0
     n /= np.linalg.norm(n, axis=0)
-    surf = np.concatenate([r(9, 0.03), np.tile(n, (9, 1))])
+    surf = np.concatenate([r(nc, 0.03), np.tile(n, (nc, 1))])
     dev = torch.device("cuda")
     return mc, tuple(torch.tensor(a, dtype=torch.float32, device=dev)
                      for a in (state, ctrl, surf))
@@ -68,44 +88,31 @@ def test_rollout_step_kernel_matches_plain(rows, control_type, surface,
                                            push):
     mc, (state, ctrl, surf) = rows
     args = (mc, state, ctrl, surf if surface else None, push,
-            (0.1, 0.0, -0.1, 0.0, 0.2, 0.0), 0.5, control_type, 0.005, 9.81)
+            _default_qpos(mc.nj), 0.5, control_type, 0.005, 9.81)
     before = sp.rollout_step.launches
     ks, ke = sp.rollout_step(*args)
     assert sp.rollout_step.launches == before + 1
     ps, pe = sp.rollout_step_plain(*args)
     torch.cuda.synchronize()
-    nj, nc = mc.nj, mc.nc
-    torch.testing.assert_close(ks, ps, atol=2e-3, rtol=0)
-    torch.testing.assert_close(ke[:nj], pe[:nj], atol=5e-3, rtol=0)
-    torch.testing.assert_close(ke[nj:nj + 3 * nc], pe[nj:nj + 3 * nc],
-                               atol=0.05, rtol=1e-3)
-    torch.testing.assert_close(ke[nj + 3 * nc:], pe[nj + 3 * nc:],
-                               atol=5e-5, rtol=0)
+    _assert_rollout_close(mc, ks, ke, ps, pe)
 
 
 @pytest.mark.parametrize("num", RAGGED)
 def test_rollout_step_kernel_matches_plain_on_ragged_batches(rows, num):
     mc, parts = rows
     state, ctrl, surf = (_columns(t, num) for t in parts)
-    args = (mc, state, ctrl, surf, True, (0.1, 0.0, -0.1, 0.0, 0.2, 0.0),
-            0.5, "P", 0.005, 9.81)
+    args = (mc, state, ctrl, surf, True, _default_qpos(mc.nj), 0.5, "P",
+            0.005, 9.81)
     ks, ke = sp.rollout_step(*args)
     again = sp.rollout_step(*args)
     ps, pe = sp.rollout_step_plain(*args)
     torch.cuda.synchronize()
     assert ks.shape == ps.shape and ke.shape == pe.shape
     assert torch.equal(ks, again[0]) and torch.equal(ke, again[1])
-    nj, nc = mc.nj, mc.nc
-    torch.testing.assert_close(ks, ps, atol=2e-3, rtol=0)
-    torch.testing.assert_close(ke[:nj], pe[:nj], atol=5e-3, rtol=0)
-    torch.testing.assert_close(ke[nj:nj + 3 * nc], pe[nj:nj + 3 * nc],
-                               atol=0.05, rtol=1e-3)
-    torch.testing.assert_close(ke[nj + 3 * nc:], pe[nj + 3 * nc:],
-                               atol=5e-5, rtol=0)
+    _assert_rollout_close(mc, ks, ke, ps, pe)
 
 
-@pytest.fixture(scope="module",
-                params=["pointfoot", "anymal_c", "a1", "cassie"])
+@pytest.fixture(scope="module", params=ROBOTS)
 def fk_state(request):
     """Rollout state rows of B envs of one robot: random poses, bases far
     from the origin as well as near it."""
@@ -154,7 +161,7 @@ def test_wrapper_rejects_bad_rows(rows):
 
 # ---------------------------------------- kernels of dynamics.step_batched
 
-@pytest.fixture(scope="module", params=["pointfoot", "anymal_c"])
+@pytest.fixture(scope="module", params=ROBOTS)
 def substep_rows(request):
     """Substep input and surface rows of B envs for one robot."""
     if not torch.cuda.is_available():
@@ -184,10 +191,23 @@ def substep_rows(request):
                      for a in (rows, surf))
 
 
+def _assert_substep_close(mc, got, want):
+    """Within the tolerances of tests/test_pallas_substep.py:50-60 (kernel
+    vs reference), and bit for bit."""
+    o_qvel, o_force = 13 + mc.nj, 13 + 2 * mc.nj
+    torch.testing.assert_close(got[:7], want[:7], atol=2e-5, rtol=0)
+    torch.testing.assert_close(got[7:13], want[7:13], atol=3e-4, rtol=3e-4)
+    torch.testing.assert_close(got[13:o_qvel], want[13:o_qvel], atol=2e-5,
+                               rtol=0)
+    torch.testing.assert_close(got[o_qvel:o_force], want[o_qvel:o_force],
+                               atol=1e-3, rtol=3e-4)
+    torch.testing.assert_close(got[o_force:], want[o_force:], atol=0.1,
+                               rtol=1e-3)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("surface", [True, False])
 def test_substep_kernel_matches_plain(substep_rows, surface):
-    """Tolerances of tests/test_pallas_substep.py:50-60 (kernel vs
-    reference)."""
     mc, (rows, surf) = substep_rows
     s = surf if surface else None
     before = sp.step_rows.launches
@@ -195,16 +215,7 @@ def test_substep_kernel_matches_plain(substep_rows, surface):
     assert sp.step_rows.launches == before + 1
     want = sp.step_rows_plain(mc, rows, s, 0.005, 9.81)
     torch.cuda.synchronize()
-    nj = mc.nj
-    o_qpos, o_qvel, o_force = 13, 13 + nj, 13 + 2 * nj
-    torch.testing.assert_close(got[:7], want[:7], atol=2e-5, rtol=0)
-    torch.testing.assert_close(got[7:13], want[7:13], atol=3e-4, rtol=3e-4)
-    torch.testing.assert_close(got[o_qpos:o_qvel], want[o_qpos:o_qvel],
-                               atol=2e-5, rtol=0)
-    torch.testing.assert_close(got[o_qvel:o_force], want[o_qvel:o_force],
-                               atol=1e-3, rtol=3e-4)
-    torch.testing.assert_close(got[o_force:], want[o_force:], atol=0.1,
-                               rtol=1e-3)
+    _assert_substep_close(mc, got, want)
 
 
 @pytest.mark.parametrize("num", RAGGED)
@@ -216,15 +227,7 @@ def test_substep_kernel_matches_plain_on_ragged_batches(substep_rows, num):
     want = sp.step_rows_plain(mc, rows, surf, 0.005, 9.81)
     torch.cuda.synchronize()
     assert got.shape == want.shape and torch.equal(got, again)
-    o_qvel, o_force = 13 + mc.nj, 13 + 2 * mc.nj
-    torch.testing.assert_close(got[:7], want[:7], atol=2e-5, rtol=0)
-    torch.testing.assert_close(got[7:13], want[7:13], atol=3e-4, rtol=3e-4)
-    torch.testing.assert_close(got[13:o_qvel], want[13:o_qvel], atol=2e-5,
-                               rtol=0)
-    torch.testing.assert_close(got[o_qvel:o_force], want[o_qvel:o_force],
-                               atol=1e-3, rtol=3e-4)
-    torch.testing.assert_close(got[o_force:], want[o_force:], atol=0.1,
-                               rtol=1e-3)
+    _assert_substep_close(mc, got, want)
 
 
 def test_substep_kernels_fit_an_sm(substep_rows):

@@ -195,17 +195,17 @@ def _registered_tasks():
 @pytest.mark.parametrize("task", _registered_tasks())
 def test_registered_task_steps(task):
     """The port's counterpart of tests/test_env.py:283-298: each registered
-    task builds on procedural terrain and takes 3 steps with finite
-    outputs; a task on plane terrain raises, as plane terrain is not
-    ported."""
+    task builds with its registered config, no override (plane terrain for
+    the flat tasks, table terrain for the others), and takes 3 steps with
+    finite outputs."""
+    from pointfoot_tpu_torch.terrain.grid import TerrainGrid
     from pointfoot_tpu_torch.utils.registry import get_cfgs, make_env
 
-    patch = {"terrain": {"procedural": True}}
-    if get_cfgs(task)[0].terrain.mesh_type == "plane":
-        with pytest.raises(NotImplementedError, match="plane"):
-            make_env(task, num_envs=2, device="cpu", cfg_patch=patch)
-        return
-    env = make_env(task, num_envs=2, device="cpu", cfg_patch=patch)
+    cfg = get_cfgs(task)[0]
+    assert not cfg.terrain.procedural
+    env = make_env(task, num_envs=2, device="cpu")
+    assert isinstance(env.terrain, TerrainGrid)
+    assert env.is_plane == (cfg.terrain.mesh_type == "plane")
     state = env.init_state(0)
     for _ in range(3):
         state, out = env.step(state, torch.zeros(2, env.num_actions))

@@ -83,7 +83,8 @@ def test_slice_modules_import_without_jax():
         "'physics.actuator', 'physics.assets', 'ops.cuda.substep', "
         "'ops.cuda.cholesky', 'ops.cuda.build', 'envs.config', "
         "'envs.robot_configs', 'envs.legged_env', 'utils.registry', "
-        "'utils.convert'):\n"
+        "'utils.convert', 'terrain.grid', 'terrain.heightfield', "
+        "'eval_policy', 'utils.policy_eval'):\n"
         "    importlib.import_module('pointfoot_tpu_torch.' + n)\n"
         "from pointfoot_tpu_torch.physics.assets import get_model\n"
         "m = get_model('anymal_c')\n"
@@ -138,13 +139,13 @@ def test_bench_record_and_unported_modes(capsys):
     cond = rec["conditions"]
     assert cond["solver"] == "plain" and cond["card"] == "cpu"
     assert len(cond["reps_solves_per_sec"]) == 2
-    for mode in ("env", "mpc_ilqr", "actuator_net"):
+    for mode in ("env_phases", "mpc_ilqr"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             bench.main(["--mode", mode, "--device", "cpu"])
 
 
 def _entry_points():
-    from pointfoot_tpu_torch import bench, device, play, train
+    from pointfoot_tpu_torch import bench, device, eval_policy, play, train
     from pointfoot_tpu_torch.utils import policy_eval, registry
 
     return {
@@ -161,13 +162,22 @@ def _entry_points():
                                      "--max_iterations", "1"]),
         "bench_train": lambda: bench.main(["--mode", "train",
                                            "--num_envs", "2"]),
+        "make_env_flat": lambda: registry.make_env("pointfoot_flat",
+                                                   num_envs=2),
+        "bench_env": lambda: bench.main(["--mode", "env", "--num_envs", "2"]),
+        "bench_actuator_net": lambda: bench.main(["--mode", "actuator_net",
+                                                  "--num_envs", "2"]),
+        "eval_policy": lambda: eval_policy.main(["--num_envs", "2",
+                                                 "--secs", "0.1"]),
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "make_env",
                                   "make_env_anymal", "make_eval_env",
                                   "play", "bench_mpc", "train",
-                                  "bench_train"])
+                                  "bench_train", "make_env_flat",
+                                  "bench_env", "bench_actuator_net",
+                                  "eval_policy"])
 def test_entry_points_raise_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
