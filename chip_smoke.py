@@ -10,7 +10,7 @@ scenarios (the fused SRB-LQR kernel), PPO training of pointfoot_rough at
 4096 envs (its rollouts through the fused rollout kernels), and the same
 env paths on plane terrain (pointfoot_flat, anymal_c_flat, PPO training of
 pointfoot_flat) and on table terrain (the registered pointfoot_rough and
-anymal_c_rough).
+anymal_c_rough), and the recurrent policy's training and inference.
 
 1. device and build: the card's name and power limit; the PointFoot,
    ANYmal, A1, Cholesky and Riccati libraries of pointfoot_tpu_torch/csrc/
@@ -104,7 +104,20 @@ anymal_c_rough).
 13. PPO training of pointfoot_flat at 4096 envs with its registered PPO
    config (128/64/32) and model_82000's knobs: one warm iteration and two
    timed, 96 rollout-substep launches and no sphere-xyz FK an iteration,
-   and the state checks of phase 10.
+   and the state checks of phase 10;
+14. the recurrent policy: PPO training of the registered pointfoot_rough
+   (table terrain) at 4096 envs with runner.policy_class_name
+   "ActorCriticRecurrent" (LSTM cells of 256, heads 512/256/128,
+   RecurrentPPO: 5 epochs x 4 minibatches of 1024 envs, BPTT over the 24
+   steps), fresh from seed 0: one warm iteration and two timed,
+   `[train-rnn]` env-steps/s including the update with the rollout and
+   update seconds, 96 rollout-substep and 24 sphere-xyz FK launches an
+   iteration and no other kernel, phase 10's state checks after every
+   iteration, and the card's recurrent update of 256 envs held to the
+   CPU's from the same parameters, Adam state, starting carry and
+   permutations (`[train-rnn-check]`); then one recurrent iteration of
+   pointfoot_flat (96 + 0 launches) and 50 steps of the plane env driven
+   by its stateful inference policy (4 launches a step, finite actions).
 
 The line before the last holds the kernels' JSON record, the one before it
 the card's name and power limit, and the last line is the JSON
@@ -114,9 +127,12 @@ not 0 and no result line is printed.  Without CUDA it exits with code 2.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -136,10 +152,11 @@ from pointfoot_tpu_torch.physics import dynamics
 from pointfoot_tpu_torch.physics.assets import get_model
 from pointfoot_tpu_torch.physics.contact import query_surface
 from pointfoot_tpu_torch.physics.model import PhysicsParams, PhysicsState
-from pointfoot_tpu_torch.rl.networks import ActorCritic
-from pointfoot_tpu_torch.rl.ppo import PPO, Transition, compute_gae
+from pointfoot_tpu_torch.rl.networks import map_carry
+from pointfoot_tpu_torch.rl.ppo import Transition, compute_gae
 from pointfoot_tpu_torch.utils import policy_eval
-from pointfoot_tpu_torch.utils.registry import make_alg_runner, make_env
+from pointfoot_tpu_torch.utils.registry import (get_cfgs, make_alg_runner,
+                                                make_env)
 
 NUM_ENVS = 4096
 CHOL_ENVS = 2048
@@ -193,6 +210,8 @@ SRB_GATE_CFG = dict(height_target=0.28, w_vel=1.0, w_height=10.0,
 SRB_GATE_TICKS, SRB_GATE_SUBSTEPS, SRB_GATE_DT = 50, 4, 0.005
 TRAIN_WARM, TRAIN_TIMED = 2, 3  # iterations
 FLAT_TRAIN_WARM, FLAT_TRAIN_TIMED = 1, 2  # pointfoot_flat (phase 13)
+RNN_TRAIN_WARM, RNN_TRAIN_TIMED = 1, 2  # recurrent pointfoot_rough (14)
+RNN_FLAT_STEPS = 50  # steps of the recurrent flat inference policy
 FLAT_STEPS = 200
 ANYMAL_FLAT_STEPS = 20
 TABLE_STEPS = 100
@@ -226,13 +245,16 @@ _MOVES = {"select", "slice", "view", "_unsafe_view", "reshape", "stack",
 
 
 class _OpCount(TorchDispatchMode):
-    """Counts the elementwise float operations a plain version performs."""
+    """Counts the elementwise float operations a plain version performs
+    (`ops`) and the aten operations it dispatches (`calls`)."""
 
     def __init__(self):
         super().__init__()
         self.ops = 0
+        self.calls = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.calls += 1
         out = func(*args, **(kwargs or {}))
         if func.overloadpacket.__name__ not in _MOVES and \
                 isinstance(out, torch.Tensor):
@@ -1273,42 +1295,53 @@ def check_train_state(runner, count0: int, metrics: dict, what: str):
                              f"expected {count0 + steps}")
 
 
-def update_card_vs_cpu(runner, rollout: Transition, last_value):
+def update_card_vs_cpu(runner, rollout: Transition, last_value, tag: str,
+                       carry0=None):
     """The PPO update of the first TRAIN_CHECK_ENVS envs of a card rollout
     on the card and on the CPU, from the runner's parameters and Adam state,
-    with the same permutations."""
-    env, tc = runner.env, runner.cfg
-    alg = tc.algorithm
+    with the same permutations (of samples; of envs for the recurrent PPO,
+    which replays from the window's starting carry `carry0`)."""
+    alg = runner.cfg.algorithm
     n = TRAIN_CHECK_ENVS
     sub = Transition(*(x[:, :n].contiguous() for x in rollout))
     last = last_value[:n]
     T = sub.reward.shape[0]
+    items = T * n if carry0 is None else n
     g = torch.Generator().manual_seed(5)
-    perms = [torch.randperm(T * n, generator=g)
+    perms = [torch.randperm(items, generator=g)
              for _ in range(alg.num_learning_epochs)]
-    mb = T * n // alg.num_mini_batches
+    mb = items // alg.num_mini_batches
     state = runner.ppo.state_dict()
     out = {}
     for dev in ("cuda", "cpu"):
-        p = tc.policy
-        net = ActorCritic(env.num_obs, env.num_privileged_obs or env.num_obs,
-                          env.num_actions, p.actor_hidden_dims,
-                          p.critic_hidden_dims, p.activation,
-                          p.init_noise_std).to(dev)
-        ppo = PPO(net, alg)
+        net = copy.deepcopy(runner.network).to(dev)
+        ppo = type(runner.ppo)(net, alg)
         ppo.load_state_dict(state)
         roll = Transition(*(x.to(dev) for x in sub))
         adv, ret = compute_gae(roll.reward, roll.done, roll.time_out,
                                roll.value, last.to(dev), alg.gamma, alg.lam)
-        flat = Transition(*(x.reshape((T * n,) + x.shape[2:])
-                            for x in roll))
         idx = perms[0][:mb].to(dev)
-        ppo.loss_and_grad(Transition(*(x[idx] for x in flat)),
-                          adv.reshape(-1)[idx], ret.reshape(-1)[idx])
+        extra = {}
+        # the CPU side counts the aten operations one minibatch dispatches
+        with (_OpCount() if dev == "cpu" else contextlib.nullcontext()) as c:
+            if carry0 is None:
+                flat = Transition(*(x.reshape((T * n,) + x.shape[2:])
+                                    for x in roll))
+                ppo.loss_and_grad(Transition(*(x[idx] for x in flat)),
+                                  adv.reshape(-1)[idx],
+                                  ret.reshape(-1)[idx])
+            else:
+                c0 = map_carry(lambda c: c[:n].to(dev), carry0)
+                extra["carry0"] = c0
+                ppo.loss_and_grad(map_carry(lambda c: c[idx], c0),
+                                  Transition(*(x[:, idx] for x in roll)),
+                                  adv[:, idx], ret[:, idx])
+        if dev == "cpu":
+            calls = c.calls
         grads = {k: q.grad.detach().cpu().clone()
                  for k, q in net.named_parameters()}
         t0 = time.perf_counter()
-        ppo.update(roll, last.to(dev), perms)
+        ppo.update(roll, last.to(dev), perms, **extra)
         if dev == "cuda":
             torch.cuda.synchronize()
         out[dev] = (grads, ppo, time.perf_counter() - t0)
@@ -1356,31 +1389,41 @@ def update_card_vs_cpu(runner, rollout: Transition, last_value):
             check_close(got, w, ADAM_RTOL, ADAM_ATOL * scale,
                         f"final {m} {k}, card vs CPU")
     nparams = sum(v.numel() for v in sp["params"].values())
-    log(f"[train-check] {n} envs x {T} steps, update on the card "
+    log(f"[{tag}] {n} envs x {T} steps, update on the card "
         f"{s_card:.3f} s, on the CPU {s_cpu:.3f} s: gradients, losses and "
         f"KL of 20 minibatches within rtol {PPO_RTOL}; learning rates equal "
         f"over {upto} of {len(kl)} minibatches; final params max abs "
         f"{worst:.3e} (Adam bound {bound:.3e}), {loose} of {nparams} "
         f"entries beyond 1e-6; Adam moments max abs error "
-        f"{moment:.3e} of their tensor's largest entry")
+        f"{moment:.3e} of their tensor's largest entry; one minibatch's "
+        f"loss and gradient dispatch {calls} aten operations")
 
 
-def train_phase(task: str, patch: dict, warm: int, timed: int, tag: str,
-                card_vs_cpu: bool):
+def train_phase(task: str, patch, warm: int, timed: int, tag: str,
+                card_vs_cpu: bool, recurrent: bool = False):
     """PPO training of `task` at full width, fresh from seed 0 with the
-    registry's PPO config (phases 10 and 13): `warm` iterations, then
-    `timed` ones; the launch counters around the first timed one."""
+    registry's PPO config (phases 10, 13 and 14; `recurrent`: the
+    ActorCriticRecurrent policy and RecurrentPPO): `warm` iterations, then
+    `timed` ones; the launch counters around the first timed one.  Returns
+    the runner, those counts and the state it ended in (env state, obs,
+    priv_obs, carry)."""
     env = make_env(task, num_envs=NUM_ENVS, cfg_patch=patch)
-    runner = make_alg_runner(env, task)
+    tc = get_cfgs(task)[1]
+    if recurrent:
+        tc = replace(tc, runner=replace(
+            tc.runner, policy_class_name="ActorCriticRecurrent"))
+    runner = make_alg_runner(env, task, train_cfg=tc)
     T = runner.cfg.runner.num_steps_per_env
     es = runner.init(0)
     es, out = env.step(es, torch.zeros(NUM_ENVS, env.num_actions,
                                        device=env.device))
     obs, priv = out.obs, out.privileged_obs
-    # time the rollout inside train_iteration: a synchronising wrapper
-    # (the update waits on the rollout at its first KL read anyway)
+    carry = runner.network.initialize_carry(NUM_ENVS) if recurrent else None
+    # time the rollout inside the iteration: a synchronising wrapper (the
+    # update waits on the rollout at its first KL read anyway)
     marks = []
-    rollout = runner.rollout
+    name = "rollout_recurrent" if recurrent else "rollout"
+    rollout = getattr(runner, name)
 
     def timed_rollout(*args, **kwargs):
         result = rollout(*args, **kwargs)
@@ -1388,7 +1431,7 @@ def train_phase(task: str, patch: dict, warm: int, timed: int, tag: str,
         marks.append(time.perf_counter())
         return result
 
-    runner.rollout = timed_rollout
+    setattr(runner, name, timed_rollout)
     timed_its, launches = [], None
     for i in range(warm + timed):
         count0 = runner.ppo.update_count
@@ -1396,7 +1439,11 @@ def train_phase(task: str, patch: dict, warm: int, timed: int, tag: str,
         if i == warm:
             reset_counts()
         t0 = time.perf_counter()
-        es, obs, priv, metrics = runner.train_iteration(es, obs, priv)
+        if recurrent:
+            es, obs, priv, carry, metrics = runner.train_iteration_recurrent(
+                es, obs, priv, carry)
+        else:
+            es, obs, priv, metrics = runner.train_iteration(es, obs, priv)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         if i == warm:
@@ -1409,26 +1456,68 @@ def train_phase(task: str, patch: dict, warm: int, timed: int, tag: str,
                           f"{task} train iteration {i}")
         if i >= warm:
             timed_its.append((t2 - t0, marks[-1] - t0, t2 - marks[-1]))
-    runner.rollout = rollout
+    setattr(runner, name, rollout)
     steps = T * NUM_ENVS
     total = sum(t[0] for t in timed_its)
     m = {k: round(float(metrics[k]), 6) for k in (
         "kl", "learning_rate", "lr_intra", "noise_std", "value_loss",
         "surrogate_loss", "mean_reward")}
     m["lr"] = m.pop("learning_rate")
-    log(f"[{tag}] {task} PPO, {NUM_ENVS} envs x {T} steps, {timed} "
-        f"iterations after {warm} warm in {total:.2f} s: "
-        f"{timed * steps / total:.0f} env-steps/s including the update; "
-        f"iteration s {[round(t[0], 4) for t in timed_its]}, rollout s "
+    p = tc.policy
+    net = ("ActorCriticRecurrent, rnn " + str(p.rnn_hidden_size) + ", heads"
+           if recurrent else "ActorCritic")
+    log(f"[{tag}] {task} PPO, {net} {'/'.join(map(str, p.actor_hidden_dims))}"
+        f", {NUM_ENVS} envs x {T} steps, {timed} iterations after {warm} "
+        f"warm in {total:.2f} s: {timed * steps / total:.0f} env-steps/s "
+        f"including the update; iteration s "
+        f"{[round(t[0], 4) for t in timed_its]}, rollout s "
         f"{[round(t[1], 4) for t in timed_its]}, update s "
         f"{[round(t[2], 4) for t in timed_its]}; launches in one iteration "
         f"{launches}; last iteration {json.dumps(m)}")
-    if not card_vs_cpu:
-        return launches
-    es, obs, priv, roll, _ = runner.rollout(es, obs, priv)
-    with torch.no_grad():
-        last_value = runner.network.value(priv)
-    update_card_vs_cpu(runner, roll, last_value)
+    if card_vs_cpu:
+        if recurrent:
+            es, obs, priv, carry, roll, _ = runner.rollout_recurrent(
+                es, obs, priv, carry)
+            with torch.no_grad():
+                _, (_, _, last_value) = runner.network(carry, obs, priv)
+            update_card_vs_cpu(runner, roll, last_value, f"{tag}-check",
+                               carry0=runner.carry0)
+        else:
+            es, obs, priv, roll, _ = runner.rollout(es, obs, priv)
+            with torch.no_grad():
+                last_value = runner.network.value(priv)
+            update_card_vs_cpu(runner, roll, last_value, f"{tag}-check")
+    return runner, launches, (es, obs, priv, carry)
+
+
+def recurrent_phase() -> dict:
+    """14. Recurrent PPO training of the registered pointfoot_rough (table
+    terrain) at 4096 envs, the card's update held to the CPU's; then one
+    recurrent iteration of pointfoot_flat and its stateful inference
+    policy driving the plane env.  Returns the launch counts of one
+    recurrent pointfoot_rough iteration."""
+    _, launches, _ = train_phase(
+        "pointfoot_rough", None, RNN_TRAIN_WARM, RNN_TRAIN_TIMED,
+        "train-rnn", card_vs_cpu=True, recurrent=True)
+    runner, _, (es, _, _, _) = train_phase(
+        "pointfoot_flat", policy_eval.FLAT_PATCH, 0, 1, "train-rnn-flat",
+        card_vs_cpu=False, recurrent=True)
+    env = runner.env
+    policy = runner.get_inference_policy()
+    actions = []
+
+    def act(t, obs):
+        a = policy(obs)
+        actions.append(bool(torch.isfinite(a).all()))
+        return a
+
+    _, _, policy_launches = timed_steps(
+        env, es, act, RNN_FLAT_STEPS, "rnn-flat-policy",
+        "pointfoot_flat recurrent inference policy")
+    expect_counts(policy_launches,
+                  rollout_substep=env.cfg.control.decimation * RNN_FLAT_STEPS)
+    if not all(actions):
+        raise AssertionError("recurrent inference policy: non-finite actions")
     return launches
 
 
@@ -1636,14 +1725,18 @@ def main() -> int:
     log(f"[t] table terrain done at {time.perf_counter() - t_start:.1f} s")
     train_phase("pointfoot_flat", policy_eval.FLAT_PATCH, FLAT_TRAIN_WARM,
                 FLAT_TRAIN_TIMED, "train-flat", card_vs_cpu=False)
+    log(f"[t] plane training done at {time.perf_counter() - t_start:.1f} s")
+    rnn_launches = recurrent_phase()
 
     kernels = [
         dict(kernel_record("rollout_substep_kernel", SUBSTEP_SRC,
                            "pointfoot_tpu/ops/pallas/substep.py:273",
-                           pf_launches["rollout_substep"], **roll), **flat),
-        kernel_record("fk_from_state_kernel", SUBSTEP_SRC,
-                      "pointfoot_tpu/ops/pallas/substep.py:328",
-                      pf_launches["fk_from_state"], **fk),
+                           pf_launches["rollout_substep"], **roll), **flat,
+             rnn_train_launches=rnn_launches["rollout_substep"]),
+        dict(kernel_record("fk_from_state_kernel", SUBSTEP_SRC,
+                           "pointfoot_tpu/ops/pallas/substep.py:328",
+                           pf_launches["fk_from_state"], **fk),
+             rnn_train_launches=rnn_launches["fk_from_state"]),
         kernel_record("substep_kernel", SUBSTEP_SRC,
                       "pointfoot_tpu/ops/pallas/substep.py:65",
                       any_launches["substep"], **sub),

@@ -190,8 +190,10 @@ class PolicyCfg:
     actor_hidden_dims: Tuple[int, ...] = (512, 256, 128)
     critic_hidden_dims: Tuple[int, ...] = (512, 256, 128)
     activation: str = "elu"
-    # the recurrent variant (ActorCriticRecurrent), not ported yet: read by
-    # nothing in this package
+    # the recurrent variant (runner.policy_class_name
+    # "ActorCriticRecurrent"): rnn_hidden_size sizes its LSTM cells.  As in
+    # the JAX package it is always one LSTM cell a branch, so rnn_type and
+    # rnn_num_layers are read by nothing
     rnn_type: str = ""
     rnn_hidden_size: int = 256
     rnn_num_layers: int = 1

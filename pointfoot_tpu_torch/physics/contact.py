@@ -143,3 +143,39 @@ def contact_terms(model, params, kin, body_vel: torch.Tensor,
         jac=torch.stack(jacs, dim=1), f_spring=torch.stack(springs, dim=1),
         damp=torch.stack(damps, dim=1), normal=torch.stack(normals, dim=1),
         active=torch.stack(actives, dim=1))
+
+
+def contact_forces(model, params, kin, body_vel: torch.Tensor,
+                   S: torch.Tensor, origin: torch.Tensor, height_fn
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Explicit evaluation, batched as `contact_terms`: the force of each
+    sphere at the current velocity (B, nc, 3) and their generalized force
+    (B, nv).  For physics/dynamics.forward_dynamics and tests; the
+    simulator's step applies damping and friction implicitly instead."""
+    terms = contact_terms(model, params, kin, body_vel, S, origin, height_fn)
+    forces = resolve_forces(model, terms, kin, body_vel, origin)
+    tau = torch.einsum("bciv,bci->bv", terms.jac, forces)
+    return forces, tau
+
+
+def resolve_forces(model, terms: ContactTerms, kin, body_vel: torch.Tensor,
+                   origin: torch.Tensor) -> torch.Tensor:
+    """(B, nc, 3): the force each sphere applies at the current body
+    velocities, explicitly."""
+    out = []
+    for c, b in enumerate(model.collision_body):
+        p = kin.body_pos[:, b] + kin.body_rot[:, b] @ model.collision_offset[c]
+        v_p = spatial.point_velocity(body_vel[:, b], p - origin)
+        f = terms.f_spring[:, c] - (terms.damp[:, c] @ v_p[..., None])[..., 0]
+        out.append(_project_cone(f, terms.normal[:, c], terms.active[:, c]))
+    return torch.stack(out, dim=1)
+
+
+def _project_cone(f: torch.Tensor, n: torch.Tensor,
+                  active: torch.Tensor) -> torch.Tensor:
+    """No adhesion: the normal part clamped at 0, the tangential part kept
+    (the friction coefficient already cones it); 0 where not in contact."""
+    f_n = torch.sum(f * n, dim=-1, keepdim=True)
+    f_t = f - f_n * n
+    return torch.where(active[..., None], torch.clamp_min(f_n, 0.0) * n + f_t,
+                       0.0)

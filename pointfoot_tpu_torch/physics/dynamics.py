@@ -7,7 +7,9 @@ algebra in world-aligned axes about the current base position
 each state and parameter tensor; the model's tensors lie on the same
 device.
 
-`step_batched` is the substep the env's scan path calls.  It picks one of
+`forward_dynamics` is the explicit acceleration with contact forces at the
+current velocity (tests and smooth models).  `step_batched` is the substep
+the env's scan path calls.  It picks one of
 three routes, as the JAX function does:
 
 - mega-kernel, CUDA and B >= MEGA_MIN_BATCH: the sphere-xy FK kernel, the
@@ -230,6 +232,34 @@ def _applied_generalized_force(model: RobotModel, params: PhysicsParams,
             tau[:, :3] = tau[:, :3] + external_torque
         tau[:, 3:6] = tau[:, 3:6] + external_force
     return tau
+
+
+def forward_dynamics(model: RobotModel, params: PhysicsParams,
+                     state: PhysicsState, joint_torque: torch.Tensor,
+                     height_fn, external_force: Optional[torch.Tensor] = None,
+                     external_torque: Optional[torch.Tensor] = None,
+                     gravity: float = 9.81):
+    """The explicit generalized acceleration u̇ (B, nv) and contact forces
+    (B, nc, 3): (M + 1e-6 I) u̇ = τ - b_joint q̇ + Jᵀf - C, with the contact
+    forces at the current velocity.  For tests and smooth models; the
+    simulator's `step` solves for the velocity implicitly instead (stable
+    for stiff contact).  The solve is the plain `linalg.chol_solve`, on
+    every device, as in JAX."""
+    origin = state.base_pos
+    kin = forward_kinematics(model, state, params)
+    S = motion_subspaces(model, kin, origin)
+    body_vel = body_spatial_velocities(model, state, S)
+    M = mass_matrix(model, params, kin, S, origin)
+    C = bias_forces(model, params, kin, S, state.qvel, body_vel, origin,
+                    gravity)
+    tau = _applied_generalized_force(model, params, state, joint_torque,
+                                     external_force, external_torque)
+    tau[:, 6:] = tau[:, 6:] - model.joint_damping * state.qvel
+    f_contact, tau_contact = contact_mod.contact_forces(
+        model, params, kin, body_vel, S, origin, height_fn)
+    rhs = tau + tau_contact - C
+    eye = torch.eye(model.nv, dtype=M.dtype, device=M.device)
+    return linalg_ops.chol_solve(M + 1e-6 * eye, rhs), f_contact
 
 
 def assemble_velocity_solve(model: RobotModel, params: PhysicsParams,

@@ -16,7 +16,9 @@ by optax's `clip_by_global_norm` formula, Adam steps at the learning rate
 this minibatch started with, `log_std` is clamped to the noise rails, and
 the adaptive rule sets the next minibatch's learning rate.  The learning
 rate is kept in float32, as JAX keeps it, so both packages take the same
-sequence of rates from the same KLs.  The recurrent PPO is not ported yet.
+sequence of rates from the same KLs.  `RecurrentPPO` shares the loss, the
+optimizer step and the SGD loop, and cuts its minibatches from the env axis
+(BPTT over each env's whole window).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 
 from pointfoot_tpu_torch.envs.config import AlgorithmCfg
 from pointfoot_tpu_torch.rl.networks import (ActorCritic, gaussian_entropy,
-                                             gaussian_log_prob)
+                                             gaussian_log_prob, map_carry)
 
 
 class Transition(NamedTuple):
@@ -196,15 +198,30 @@ class PPO:
         value losses, the entropy, the KL and the learning rate each
         minibatch used (`lr_intra`), then the final `learning_rate`,
         `mean_advantage` and `mean_return`."""
-        cfg = self.cfg
         T, B = rollout.reward.shape
-        advantages, returns = compute_gae(
-            rollout.reward, rollout.done, rollout.time_out, rollout.value,
-            last_value, cfg.gamma, cfg.lam)
+        advantages, returns = self._gae(rollout, last_value)
         n = T * B
         flat = Transition(*(x.reshape((n,) + x.shape[2:]) for x in rollout))
         adv_flat = advantages.reshape(-1)
         ret_flat = returns.reshape(-1)
+
+        def minibatch(idx):
+            return self.loss_and_grad(Transition(*(x[idx] for x in flat)),
+                                      adv_flat[idx], ret_flat[idx])
+
+        return self._epochs(n, perms, minibatch, advantages, returns)
+
+    def _gae(self, rollout: Transition, last_value):
+        return compute_gae(rollout.reward, rollout.done, rollout.time_out,
+                           rollout.value, last_value, self.cfg.gamma,
+                           self.cfg.lam)
+
+    def _epochs(self, n: int, perms, minibatch, advantages, returns
+                ) -> Dict[str, torch.Tensor]:
+        """The SGD loop shared by both PPOs: each epoch permutes the n
+        items minibatches are cut from (samples, or envs for the recurrent
+        PPO) and `minibatch(idx)` leaves the gradients of one."""
+        cfg = self.cfg
         mb_size = n // cfg.num_mini_batches
         history = {k: [] for k in self.METRICS}
         for epoch in range(cfg.num_learning_epochs):
@@ -212,10 +229,7 @@ class PPO:
                     torch.randperm(n, generator=self.generator,
                                    device=self.device))
             for i in range(cfg.num_mini_batches):
-                idx = perm[i * mb_size:(i + 1) * mb_size]
-                mb = Transition(*(x[idx] for x in flat))
-                _, metrics = self.loss_and_grad(mb, adv_flat[idx],
-                                                ret_flat[idx])
+                _, metrics = minibatch(perm[i * mb_size:(i + 1) * mb_size])
                 metrics["lr_intra"] = torch.tensor(
                     self.learning_rate, device=self.device)
                 self._sgd_step(float(metrics["kl"]))
@@ -265,3 +279,52 @@ class PPO:
                                                      p.dtype).clone()}
         self.learning_rate = np.float32(state["learning_rate"])
         self.update_count = int(state["update_count"])
+
+
+class RecurrentPPO(PPO):
+    """PPO for ActorCriticRecurrent (pointfoot_tpu/rl/ppo.py RecurrentPPO).
+
+    Minibatches split the env axis and keep each env's T-step window whole
+    in (T, mb) layout.  The loss replays the LSTM over the window from the
+    carry the rollout started with, zeroing an env's carry before step t
+    where it was done at t - 1, and backpropagates through the whole
+    window; the advantages are normalised over the (T, mb) window."""
+
+    def sequence_outputs(self, carry0, batch: Transition):
+        """(mean, std, value), each (T, mb, ...), of the network replayed
+        over `batch` from `carry0`, an env's carry zeroed before step t
+        where it was done at t - 1."""
+        done_prev = torch.cat([torch.zeros_like(batch.done[:1]),
+                               batch.done[:-1]]).to(batch.obs.dtype)
+        return self.network.replay(carry0, batch.obs, batch.priv_obs,
+                                   done_prev)
+
+    def loss_and_grad(self, carry0, batch: Transition, advantages, returns):
+        """The window loss of a minibatch of envs and its metrics; leaves
+        the gradients in the parameters' `.grad`."""
+        self.optimizer.zero_grad(set_to_none=False)
+        mean, std, value = self.sequence_outputs(carry0, batch)
+        loss, metrics = self._loss_from_outputs(mean, std, value, batch,
+                                                advantages, returns)
+        loss.backward()
+        return loss.detach(), metrics
+
+    def update(self, rollout: Transition, last_value: torch.Tensor,
+               perms: Optional[Sequence[torch.Tensor]] = None,
+               carry0=None) -> Dict[str, torch.Tensor]:
+        """GAE, then epochs x env-axis minibatches with BPTT over the
+        window, from `carry0`, the carry the rollout started with.  `perms`
+        gives one permutation of the B envs per epoch; the metrics are
+        PPO.update's."""
+        if carry0 is None:
+            raise ValueError("RecurrentPPO.update needs the rollout's carry0")
+        B = rollout.reward.shape[1]
+        advantages, returns = self._gae(rollout, last_value)
+
+        def minibatch(idx):
+            return self.loss_and_grad(
+                map_carry(lambda c: c[idx], carry0),
+                Transition(*(x[:, idx] for x in rollout)),
+                advantages[:, idx], returns[:, idx])
+
+        return self._epochs(B, perms, minibatch, advantages, returns)

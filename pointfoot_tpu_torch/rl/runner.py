@@ -13,10 +13,18 @@ the CUDA kernels of the env step refuse inputs that carry one.  Not
 pass, which cannot save inference tensors for backward.  The rollout fills
 storage preallocated as (T, B, ...), reused by the next iteration.
 
+With `runner.policy_class_name` "ActorCriticRecurrent" the runner trains
+the LSTM policy with RecurrentPPO: `rollout_recurrent` steps both cells
+every env step (the critic's on the privileged observations) and zeroes an
+env's carry after a done; `train_iteration_recurrent` takes and returns the
+carry and hands the update the carry the window started from, kept in
+preallocated storage.  `learn` starts from zero carries; checkpoints hold
+no carry, as in JAX.
+
 Checkpoints are torch files, `model_<iteration>.pt`, holding the PPO state
 (parameters, Adam moments, learning rate, update count), the iteration and
-the env state.  Not ported yet: the recurrent policy, the data-parallel
-mesh and the bench-lock handshake of the JAX runner.
+the env state.  Not ported yet: the data-parallel mesh and the bench-lock
+handshake of the JAX runner.
 """
 
 from __future__ import annotations
@@ -32,9 +40,12 @@ import torch
 
 from pointfoot_tpu_torch.envs.config import TrainCfg
 from pointfoot_tpu_torch.envs.legged_env import EnvState
-from pointfoot_tpu_torch.rl.networks import (ActorCritic, gaussian_log_prob,
+from pointfoot_tpu_torch.rl.networks import (ActorCritic,
+                                             ActorCriticRecurrent,
+                                             carry_leaves, gaussian_log_prob,
+                                             map_carry,
                                              sample_action)
-from pointfoot_tpu_torch.rl.ppo import PPO, Transition
+from pointfoot_tpu_torch.rl.ppo import PPO, RecurrentPPO, Transition
 
 INFO_KEYS = ("episode_rew", "num_resets", "terrain_level", "max_command_x",
              "num_nan_quarantined")
@@ -43,24 +54,32 @@ INFO_KEYS = ("episode_rew", "num_resets", "terrain_level", "max_command_x",
 class OnPolicyRunner:
     def __init__(self, env, train_cfg: TrainCfg,
                  log_dir: Optional[str] = None):
-        if train_cfg.runner.policy_class_name != "ActorCritic":
-            raise NotImplementedError(
-                f"policy class '{train_cfg.runner.policy_class_name}' is not "
-                f"ported yet (ROADMAP §1: the recurrent policy)")
         self.env = env
         self.cfg = train_cfg
         self.log_dir = log_dir
         self.device = env.device
         p = train_cfg.policy
-        self.network = ActorCritic(
-            env.num_obs, env.num_privileged_obs or env.num_obs,
-            env.num_actions, p.actor_hidden_dims, p.critic_hidden_dims,
-            p.activation, p.init_noise_std).to(self.device)
-        self.ppo = PPO(self.network, train_cfg.algorithm)
+        self.recurrent = (train_cfg.runner.policy_class_name
+                          == "ActorCriticRecurrent")
+        dims = (env.num_obs, env.num_privileged_obs or env.num_obs,
+                env.num_actions)
+        if self.recurrent:
+            self.network = ActorCriticRecurrent(
+                *dims, p.rnn_hidden_size, p.actor_hidden_dims,
+                p.critic_hidden_dims, p.activation, p.init_noise_std)
+            ppo_cls = RecurrentPPO
+        else:
+            self.network = ActorCritic(
+                *dims, p.actor_hidden_dims, p.critic_hidden_dims,
+                p.activation, p.init_noise_std)
+            ppo_cls = PPO
+        self.network.to(self.device)
+        self.ppo = ppo_cls(self.network, train_cfg.algorithm)
         self.generator = torch.Generator(device=self.device)
         self.current_iteration = 0
         self._writer = None
         self.storage = None
+        self.carry0 = None  # the recurrent window's starting carry
 
     # ---------------------------------------------------------------- setup
 
@@ -103,14 +122,34 @@ class OnPolicyRunner:
         comes from the runner's generator unless `noise` (T, B, na) gives
         it.  Returns (env state, obs, priv_obs, the rollout as a Transition
         of (T, B, ...) storage, the per-step infos)."""
+        env_state, obs, priv_obs, _, st, infos = self._rollout(
+            env_state, obs, priv_obs, None, noise)
+        return env_state, obs, priv_obs, st, infos
+
+    @torch.no_grad()
+    def rollout_recurrent(self, env_state: EnvState, obs, priv_obs, carry,
+                          noise=None):
+        """`rollout` of the recurrent policy from `carry`, which is copied
+        into the storage's `carry0`.  Returns (env state, obs, priv_obs, the
+        carry after the window, the rollout, the per-step infos)."""
+        if self.carry0 is None:
+            self.carry0 = map_carry(torch.empty_like, carry)
+        for dst, src in zip(carry_leaves(self.carry0), carry_leaves(carry)):
+            dst.copy_(src)
+        return self._rollout(env_state, obs, priv_obs, carry, noise)
+
+    def _rollout(self, env_state, obs, priv_obs, carry, noise):
         net = self.network
         st = self._buffers(obs, priv_obs)
         T = st.obs.shape[0]
         infos = {k: [] for k in INFO_KEYS}
         for t in range(T):
             po = obs if priv_obs is None else priv_obs
-            mean, std = net.distribution(obs)
-            value = net.value(po)
+            if carry is None:
+                mean, std = net.distribution(obs)
+                value = net.value(po)
+            else:
+                carry, (mean, std, value) = net(carry, obs, po)
             action = sample_action(mean, std, self.generator,
                                    None if noise is None else noise[t])
             log_prob = gaussian_log_prob(mean, std, action)
@@ -118,6 +157,10 @@ class OnPolicyRunner:
             if priv_obs is not None:
                 st.priv_obs[t].copy_(priv_obs)
             env_state, out = self.env.step(env_state, action)
+            if carry is not None:
+                # an env that just reset starts its episode from zero
+                keep = (1.0 - out.done.to(obs.dtype))[:, None]
+                carry = map_carry(lambda c: c * keep, carry)
             st.action[t].copy_(action)
             st.reward[t].copy_(out.reward)
             st.done[t].copy_(out.done)
@@ -130,7 +173,7 @@ class OnPolicyRunner:
                 infos[k].append(out.extras[k])
             obs = out.obs
             priv_obs = None if priv_obs is None else out.privileged_obs
-        return (env_state, obs, priv_obs, st,
+        return (env_state, obs, priv_obs, carry, st,
                 {k: torch.stack(v) for k, v in infos.items()})
 
     def train_iteration(self, env_state: EnvState, obs, priv_obs,
@@ -151,6 +194,32 @@ class OnPolicyRunner:
             last_value = self.network.value(
                 obs if priv_obs is None else priv_obs)
         return self.ppo.update(rollout, last_value, perms)
+
+    def train_iteration_recurrent(self, env_state: EnvState, obs, priv_obs,
+                                  carry, noise=None, perms=None):
+        """`train_iteration` of the recurrent policy: the carry threads
+        through the rollout and on to the next iteration, and the update
+        replays each minibatch from the window's starting carry.  Returns
+        (env state, obs, priv_obs, carry, metrics)."""
+        env_state, obs, priv_obs, carry, rollout, infos = \
+            self.rollout_recurrent(env_state, obs, priv_obs, carry, noise)
+        metrics = self.update_recurrent(rollout, obs, priv_obs, carry, perms)
+        env_state, obs, priv_obs, metrics = self._finish_iteration(
+            env_state, obs, priv_obs, rollout, infos, metrics)
+        return env_state, obs, priv_obs, carry, metrics
+
+    def update_recurrent(self, rollout: Transition, obs, priv_obs, carry,
+                         perms=None):
+        """The RecurrentPPO update of the window `rollout_recurrent` last
+        collected, replayed from the carry it started from (the storage's
+        `carry0`); the window ended at `obs` / `priv_obs` with `carry`, and
+        is bootstrapped from one forward on that carry (the advanced copy is
+        discarded)."""
+        with torch.no_grad():
+            _, (_, _, last_value) = self.network(
+                carry, obs, obs if priv_obs is None else priv_obs)
+        return self.ppo.update(rollout, last_value, perms,
+                               carry0=self.carry0)
 
     def _finish_iteration(self, env_state, obs, priv_obs, rollout, infos,
                           metrics):
@@ -191,12 +260,19 @@ class OnPolicyRunner:
         env_state, out0 = env.step(env_state, torch.zeros(
             env.num_envs, env.num_actions, device=self.device))
         obs, priv_obs = out0.obs, out0.privileged_obs
+        carry = (self.network.initialize_carry(env.num_envs)
+                 if self.recurrent else None)
         t_start = time.time()
         steps_per_iter = self.cfg.runner.num_steps_per_env * env.num_envs
         save_interval = self.cfg.runner.save_interval
         for it in range(num_iterations):
-            env_state, obs, priv_obs, metrics = self.train_iteration(
-                env_state, obs, priv_obs)
+            if self.recurrent:
+                env_state, obs, priv_obs, carry, metrics = \
+                    self.train_iteration_recurrent(env_state, obs, priv_obs,
+                                                   carry)
+            else:
+                env_state, obs, priv_obs, metrics = self.train_iteration(
+                    env_state, obs, priv_obs)
             self.current_iteration += 1
             if it % log_every == 0 or it == num_iterations - 1:
                 m = {k: v.cpu() for k, v in metrics.items()}
@@ -285,7 +361,12 @@ class OnPolicyRunner:
 
     def get_inference_policy(self) -> Callable:
         """Deterministic policy obs -> action mean, of the current
-        parameters (a copy: later updates do not change it)."""
+        parameters (a copy: later updates do not change it).  For the
+        recurrent policy a callable that keeps the LSTM carry itself:
+        `reset(batch)` starts it from zero (`reset()` drops it), and a call
+        with another batch size than the last resets it."""
+        if self.recurrent:
+            return _StatefulPolicy(*self.get_inference_policy_recurrent())
         actor = copy.deepcopy(self.network.actor).eval()
 
         @torch.no_grad()
@@ -293,6 +374,50 @@ class OnPolicyRunner:
             return actor(obs)
 
         return policy
+
+    def get_inference_policy_recurrent(self):
+        """(policy, carry0): policy(carry, obs) -> (carry, action mean) of
+        a copy of the current parameters, carry0(batch) the zero carry.
+        As in JAX the critic cell is fed the observations too (deployment
+        has no privileged observations), so the policy exists only where
+        the critic reads observations of the actor's width."""
+        env = self.env
+        if env.num_privileged_obs not in (None, env.num_obs):
+            raise ValueError(
+                f"the recurrent inference policy feeds the {env.num_obs}-d "
+                f"observations to the critic cell as well, as the JAX "
+                f"package does, but this task's critic cell reads "
+                f"{env.num_privileged_obs}-d privileged observations (the "
+                f"JAX package fails here too, with flax's parameter-shape "
+                f"error)")
+        net = copy.deepcopy(self.network).eval()
+
+        @torch.no_grad()
+        def policy(carry, obs):
+            carry, (mean, _, _) = net(carry, obs, obs)
+            return carry, mean
+
+        return policy, net.initialize_carry
+
+
+class _StatefulPolicy:
+    """obs -> action mean of a recurrent policy that keeps its carry."""
+
+    def __init__(self, step: Callable, carry0: Callable):
+        self._step, self._carry0 = step, carry0
+        self._carry, self._batch = None, None
+
+    def reset(self, batch: Optional[int] = None) -> None:
+        self._batch = batch
+        self._carry = None if batch is None else self._carry0(batch)
+
+    def __call__(self, obs: torch.Tensor) -> torch.Tensor:
+        b = obs.shape[0] if obs.ndim > 1 else 1
+        if self._carry is None or b != self._batch:
+            self.reset(b)
+        o = obs if obs.ndim > 1 else obs[None]
+        self._carry, mean = self._step(self._carry, o)
+        return mean if obs.ndim > 1 else mean[0]
 
 
 def _state_to_dict(state) -> dict:

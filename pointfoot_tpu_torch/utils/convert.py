@@ -1,8 +1,11 @@
 """Carry weights and state over from the JAX package, as numpy arrays.
 
-- `actor_critic_state_dict`: flax ActorCritic parameters -> the state dict
-  of rl/networks.ActorCritic.  A flax Dense kernel is (in, out); a torch
-  Linear weight is (out, in), so it goes over transposed.
+- `actor_critic_state_dict`: flax ActorCritic or ActorCriticRecurrent
+  parameters -> the state dict of rl/networks.ActorCritic or
+  ActorCriticRecurrent.  A flax Dense kernel is (in, out); a torch Linear
+  weight is (out, in), so it goes over transposed.  The LSTM cells keep
+  flax's (in, out) layout: the four gate kernels of a group are
+  concatenated in the order i, f, g, o.
 - `physics_state_from_numpy` / `env_state_from_numpy`: a JAX PhysicsState or
   EnvState exported field by field with `np.asarray` -> torch states, the
   actuator-network carry included.  The JAX key has no counterpart and is
@@ -10,8 +13,9 @@
 - `srb_problem_from_numpy`: the eight arrays of a batch of SRB-LQR problems
   (mpc/srb.srb_problem: F, c_tot, L, Xd, Ud, XTd, x0, f_ff) -> tensors.
 - `train_state_from_numpy`: a JAX TrainState (params, optax's Adam moments
-  and count, learning rate, update count) -> the state rl/ppo.PPO loads,
-  so a JAX checkpoint can be resumed by the port.  `flatten` turns what
+  and count, learning rate, update count) of either network -> the state
+  rl/ppo.PPO or RecurrentPPO loads, so a JAX checkpoint can be resumed by
+  the port.  `flatten` turns what
   orbax restores into flat "a/b/c" keys, for an npz.
 
 The actuator network's weights need no conversion: physics/actuator.py
@@ -45,29 +49,45 @@ def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+def _f32(arr) -> torch.Tensor:
+    return torch.from_numpy(np.array(arr, np.float32, order="C"))
+
+
 def actor_critic_state_dict(flax_params: Mapping) -> Dict[str, torch.Tensor]:
     """Map `actor/Dense_i/{kernel,bias}`, `critic/Dense_i/...` and `log_std`
     (nested dicts, optionally under "params", or flat "a/b/c" keys) onto
-    `actor.{2i}.{weight,bias}`, `critic.{2i}...` and `log_std`."""
+    `actor.{2i}.{weight,bias}`, `critic.{2i}...` and `log_std`; for the
+    recurrent network `actor_head/Dense_i/...` and `critic_head/...` onto
+    `actor_head.{2i}...` and `critic_head...`, and the cells'
+    `{actor,critic}_rnn/{ii,if,ig,io}/kernel` onto `<cell>.weight_i`,
+    `{hi,hf,hg,ho}/kernel` onto `<cell>.weight_h` and their biases onto
+    `<cell>.bias_h`.  A tree of Adam moments converts the same way."""
     flat = flatten(flax_params)
-    out = {}
+    out, cells = {}, {}
     for key, arr in flat.items():
         parts = key.split("/")
         if parts[0] == "params":
             parts = parts[1:]
         if parts == ["log_std"]:
-            out["log_std"] = torch.from_numpy(np.array(arr, np.float32))
+            out["log_std"] = _f32(arr)
             continue
         net, dense, leaf = parts
+        if net.endswith("_rnn"):
+            cells.setdefault(net, {})[f"{dense}/{leaf}"] = arr
+            continue
         i = int(dense.split("_")[1])
         if leaf == "kernel":
-            out[f"{net}.{2 * i}.weight"] = torch.from_numpy(
-                np.array(np.asarray(arr, np.float32).T, order="C"))
+            out[f"{net}.{2 * i}.weight"] = _f32(np.asarray(arr).T)
         elif leaf == "bias":
-            out[f"{net}.{2 * i}.bias"] = torch.from_numpy(
-                np.array(arr, np.float32))
+            out[f"{net}.{2 * i}.bias"] = _f32(arr)
         else:
             raise KeyError(f"unexpected flax parameter {key}")
+    for net, p in cells.items():
+        for name, group, leaf in (("weight_i", "i", "kernel"),
+                                  ("weight_h", "h", "kernel"),
+                                  ("bias_h", "h", "bias")):
+            out[f"{net}.{name}"] = _f32(np.concatenate(
+                [p[f"{group}{g}/{leaf}"] for g in "ifgo"], axis=-1))
     return out
 
 
@@ -76,8 +96,8 @@ def train_state_from_numpy(arrays: Mapping) -> dict:
     TrainState: nested as orbax restores it, or flat with "a/b/c" keys
     (`params/params/...`, `opt_state/2/{mu,nu}/params/...`,
     `opt_state/2/count`, `learning_rate`, `update_count`; index 2 of the
-    optimizer chain is optax's scale_by_adam).  The Adam moments of a
-    kernel are transposed as the kernel is."""
+    optimizer chain is optax's scale_by_adam), of either network.  The Adam
+    moments of a kernel are transposed or concatenated as the kernel is."""
     flat = flatten(arrays)
 
     def sub(prefix: str) -> Dict[str, np.ndarray]:

@@ -62,16 +62,22 @@ def load_actor(env, task: str, path: Optional[str] = None) -> ActorCritic:
     net = ActorCritic(env.num_obs, env.num_privileged_obs or env.num_obs,
                       env.num_actions, p.actor_hidden_dims,
                       p.critic_hidden_dims, p.activation, p.init_noise_std)
-    if path.endswith(".pt"):
-        raw = torch.load(path, map_location="cpu", weights_only=True)
-        sd = raw["train_state"]["params"]
-    else:
-        with np.load(path) as f:
-            sd = actor_critic_state_dict({k: f[k] for k in f.files})
-    missing, unexpected = net.load_state_dict(sd, strict=False)
+    missing, unexpected = net.load_state_dict(load_policy_state(path),
+                                              strict=False)
     if unexpected or any(not k.startswith("critic.") for k in missing):
         raise KeyError(f"{path}: missing {missing}, unexpected {unexpected}")
     return net.to(env.device).eval()
+
+
+def load_policy_state(path: str, device="cpu") -> dict:
+    """The network state dict on `device` of the port's `model_<it>.pt`
+    or of an npz of flax-named arrays (an actor and its log_std)."""
+    if path.endswith(".pt"):
+        raw = torch.load(path, map_location=device, weights_only=True)
+        return raw["train_state"]["params"]
+    with np.load(path) as f:
+        sd = actor_critic_state_dict({k: f[k] for k in f.files})
+    return {k: v.to(device) for k, v in sd.items()}
 
 
 def inference_policy(net: ActorCritic) -> Callable:

@@ -116,11 +116,12 @@ def srb_lqr_problem(num: int, m: int, seed: int = 0):
 GRAD_FLOOR = 1e-4
 
 
-def jax_minibatches(jppo, ts, roll, last_value, perms):
+def jax_minibatches(jppo, ts, roll, last_value, perms, carry0=None):
     """The JAX package's `PPO.update` unrolled minibatch by minibatch, with
     its own `_loss` and `_sgd_step` and the given per-epoch permutations:
     the metrics and the gradients (as the port's state dicts) of every
-    minibatch, and the final TrainState."""
+    minibatch, and the final TrainState.  With `carry0`, `RecurrentPPO.update`
+    the same way: minibatches of envs, its `_loss_seq` from their carries."""
     import jax
     import jax.numpy as jnp
 
@@ -131,15 +132,27 @@ def jax_minibatches(jppo, ts, roll, last_value, perms):
     adv, ret = jppo_mod.compute_gae(roll.reward, roll.done, roll.time_out,
                                     roll.value, last_value, cfg.gamma,
                                     cfg.lam)
-    n = adv.size
-    flat = jax.tree.map(lambda x: x.reshape((n,) + x.shape[2:]), roll)
-    adv, ret = adv.reshape(-1), ret.reshape(-1)
+    if carry0 is None:
+        n = adv.size
+        flat = jax.tree.map(lambda x: x.reshape((n,) + x.shape[2:]), roll)
+        adv, ret = adv.reshape(-1), ret.reshape(-1)
+
+        def loss_grad(params, idx):
+            mb = jax.tree.map(lambda x: x[idx], flat)
+            return jax.value_and_grad(jppo._loss, has_aux=True)(
+                params, mb, adv[idx], ret[idx])
+    else:
+        n = adv.shape[1]
+
+        def loss_grad(params, idx):
+            mb = jax.tree.map(lambda x: x[:, idx], roll)
+            c0 = jax.tree.map(lambda c: c[idx], carry0)
+            return jax.value_and_grad(jppo._loss_seq, has_aux=True)(
+                params, c0, mb, adv[:, idx], ret[:, idx])
 
     @jax.jit
     def step(ts, idx):
-        mb = jax.tree.map(lambda x: x[idx], flat)
-        (_, m), g = jax.value_and_grad(jppo._loss, has_aux=True)(
-            ts.params, mb, adv[idx], ret[idx])
+        (_, m), g = loss_grad(ts.params, idx)
         m = dict(m, lr_intra=ts.learning_rate)
         return jppo._sgd_step(ts, g, m), m, g
 

@@ -145,7 +145,8 @@ def test_bench_record_and_unported_modes(capsys):
 
 
 def _entry_points():
-    from pointfoot_tpu_torch import bench, device, eval_policy, play, train
+    from pointfoot_tpu_torch import (bench, device, eval_policy,
+                                     export_policy, play, train)
     from pointfoot_tpu_torch.utils import policy_eval, registry
 
     return {
@@ -169,6 +170,8 @@ def _entry_points():
                                                   "--num_envs", "2"]),
         "eval_policy": lambda: eval_policy.main(["--num_envs", "2",
                                                  "--secs", "0.1"]),
+        "export_policy": lambda: export_policy.main(
+            ["--load_run", policy_eval.FLAT_ACTOR, "--out", os.devnull]),
     }
 
 
@@ -177,7 +180,7 @@ def _entry_points():
                                   "play", "bench_mpc", "train",
                                   "bench_train", "make_env_flat",
                                   "bench_env", "bench_actuator_net",
-                                  "eval_policy"])
+                                  "eval_policy", "export_policy"])
 def test_entry_points_raise_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
