@@ -39,12 +39,12 @@ anymal_c_rough), and the recurrent policy's training and inference.
    plain version by CUDA events, and the least time the card could take (bytes over 3.35 TB/s or
    float32 operations over 67 TFLOP/s); the Cholesky kernel also beside
    torch.linalg.cholesky + torch.cholesky_solve;
-4. the PointFoot rollout at full width: 500 policy steps with the launch
+4. the PointFoot rollout at full width: 200 policy steps with the launch
    counters reset just before and read just after (1x and 4x the step
    count), env-steps/s, a per-layer breakdown and the regression probe
    (level 0, command vx 0.4 m/s, 6 s): falls <= num_envs and mean forward
    velocity >= 0.15 m/s;
-5. anymal_c_rough at full width: 200 steps of the bench signal (substep and
+5. anymal_c_rough at full width: 100 steps of the bench signal (substep and
    FK-xy kernels 4x the step count each, the other kernels 0), env-steps/s,
    a per-layer breakdown, and the physical gate (level 0, zero actions, no
    pushes, 2 s) inside the band the JAX package gives;
@@ -117,7 +117,29 @@ anymal_c_rough), and the recurrent policy's training and inference.
    CPU's from the same parameters, Adam state, starting carry and
    permutations (`[train-rnn-check]`); then one recurrent iteration of
    pointfoot_flat (96 + 0 launches) and 50 steps of the plane env driven
-   by its stateful inference policy (4 launches a step, finite actions).
+   by its stateful inference policy (4 launches a step, finite actions);
+15. the gait-MPC and iLQR paths at 4096 scenarios: `[gait-lqr]` the SRB-LQR
+   kernel on the frozen-contact problems of the PointFoot gait's first
+   tick (4096, 1000, 1, 4099 scenarios, against sequential_srb_lqr, two
+   launches bit for bit); `[gait]` make_controller("pointfoot") walking at
+   vx 0.4 from perturbed starts (sigma 0.15 m/s) for 250 ticks of 4 x
+   step_batched substeps on analytic.FLAT: kernel 6 once a tick, kernels 4
+   and 3 four times, the fall share at most 1/8, the mean vx, scenario-
+   ticks/s and a per-layer tick; `[gait-a1]` make_controller("a1") trotting
+   for 1000 ticks at 200 Hz (min z > 0.15, tilt < 0.3, mean vx over ticks
+   400-1000 > 0.2; kernels 4 and 3 once a tick); kernels 3 and 4 of
+   PointFoot and A1 held to their plain versions on each loop's first
+   step_batched inputs (full width and 1000, 1, 4099, two launches bit for
+   bit); `[ilqr]` bench.main_mpc_ilqr (solves/s; launches derived from the
+   row counts: kernel 5 for the 1024-row rollouts, kernels 4 and 3 for the
+   6144-row line search) with one chunk split into rollout, linearization
+   (and its peak memory), backward and forward pass; `[ilqr-check]` the
+   card's solve of 1024 perturbed scenarios at horizon 3 against the CPU's,
+   with kernels 3 and 4 held to their plain versions on its first 6144-row
+   line-search step; `[ilqr-witness]` the same scenarios at horizon 25
+   through the kernel routes against the plain dynamics.step on the card,
+   beside the plain route's moves under one-ulp nudges; `[mpc-balance]`
+   the iLQR balance recipe of tests/test_mpc.py at 64 scenarios.
 
 The line before the last holds the kernels' JSON record, the one before it
 the card's name and power limit, and the last line is the JSON
@@ -142,7 +164,11 @@ from pointfoot_tpu_torch import bench
 from pointfoot_tpu_torch.kernel_times import (A1_QDEF, dense_problem,
                                               graph_ms, substep_inputs)
 from pointfoot_tpu_torch.kernel_times import events_ms as cuda_ms
-from pointfoot_tpu_torch.mpc import srb
+from pointfoot_tpu_torch.mpc import costs as mpc_costs
+from pointfoot_tpu_torch.mpc import gait as gait_mpc
+from pointfoot_tpu_torch.mpc import ilqr, srb
+from pointfoot_tpu_torch.mpc.controller import MPCController
+from pointfoot_tpu_torch.ops import quat
 from pointfoot_tpu_torch.ops.cuda import build
 from pointfoot_tpu_torch.ops.cuda import cholesky as ch
 from pointfoot_tpu_torch.ops.cuda import riccati as rk
@@ -154,6 +180,7 @@ from pointfoot_tpu_torch.physics.contact import query_surface
 from pointfoot_tpu_torch.physics.model import PhysicsParams, PhysicsState
 from pointfoot_tpu_torch.rl.networks import map_carry
 from pointfoot_tpu_torch.rl.ppo import Transition, compute_gae
+from pointfoot_tpu_torch.terrain.analytic import FLAT
 from pointfoot_tpu_torch.utils import policy_eval
 from pointfoot_tpu_torch.utils.registry import (get_cfgs, make_alg_runner,
                                                 make_env)
@@ -161,8 +188,8 @@ from pointfoot_tpu_torch.utils.registry import (get_cfgs, make_alg_runner,
 NUM_ENVS = 4096
 CHOL_ENVS = 2048
 WARM_STEPS = 20
-ROLLOUT_STEPS = 500
-ANYMAL_STEPS = 200
+ROLLOUT_STEPS = 200  # 500 before phase 15 needed the time
+ANYMAL_STEPS = 100  # 200 before phase 15 needed the time
 CHOL_STEPS = 25
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
@@ -221,6 +248,38 @@ BENCH_ITERS, BENCH_REPS = 1, 2
 MODEL_100000 = (policy_eval.WEIGHTS
                 + "/pointfoot_rough_model_100000_actor.npz")
 TRAIN_CHECK_ENVS = 256  # envs of a card rollout whose update the CPU redoes
+# phase 15: the perturbed-start battery of tests/test_gait.py:246-290 at
+# full width, 5 s; the JAX test allows 2 of 32 starts to fall, and the JAX
+# package measured 3-4 falls per 64 at vx 0.4 (pointfoot_tpu/mpc/gait.py:
+# 120-130), so the gate is twice the JAX bound
+GAIT_SEED, GAIT_SIGMA, GAIT_VX = 2, 0.15, 0.4
+GAIT_TICKS, GAIT_VX_FROM = 250, 100
+GAIT_FALL_Z, GAIT_MAX_FALL_SHARE = 0.40, 1 / 8
+# the A1 trot of tests/test_gait.py:395-437: 5 s at 200 Hz
+A1_TICKS, A1_VX_FROM = 1000, 400
+ILQR_CHUNK, ILQR_ITERS = 1024, 2  # bench --mode mpc_ilqr
+# [ilqr-check]: the card's solve against the CPU's, one chunk of perturbed
+# scenarios, so that on the card the rollouts take kernel 5 and the 6144-row
+# line search kernels 4 and 3, as in the bench; horizon 3, where a solve is
+# well-conditioned.  The check prints how far a one-ulp nudge of the
+# velocities moves the CPU's own solve; the tolerances are about ten times
+# that: ((rtol, atol) of the controls, N·m), ((rtol, atol) of the costs)
+ILQR_CHECK_ENVS, ILQR_CHECK_HORIZON, ILQR_CHECK_SEED = ILQR_CHUNK, 3, 5
+ILQR_CHECK_TOL = ((0.0, 0.03), (5e-3, 0.0))
+# [ilqr-witness]: the same scenarios at the bench's horizon 25, the card's
+# kernel routes against its plain dynamics.step.  A horizon-25 solve from
+# such states jumps to another local solution under roundoff (the witness
+# prints how many scenarios a one-ulp nudge of the plain route's
+# velocities moves), so the gate counts scenarios beyond ILQR_CHECK_TOL:
+# the kernel routes may move no more of them, and flip no more improved
+# flags, than either nudge of the plain route does.  Then the first
+# scenarios at horizon 25, the card against the CPU: every scenario beyond
+# the tolerance must be one that a one-ulp nudge of the card moves onto the
+# CPU's solution
+ILQR_WITNESS_HORIZON, ILQR_WITNESS_NUDGES = 25, (1, 2)
+ILQR_WITNESS_CPU_ENVS, ILQR_WITNESS_CPU_NUDGES = 8, (1, 2, 3)
+# tests/test_mpc.py:110-175 at 64 scenarios: a gate, sized for time
+BALANCE_ENVS, BALANCE_TICKS = 64, 10
 # tests/test_torch_ppo.py: losses, KL and gradients (rtol, and atol scaled
 # by the tensor's largest entry for gradients)
 PPO_RTOL, PPO_ATOL = 1e-5, 1e-6
@@ -266,6 +325,14 @@ def count_ops(fn) -> int:
     with _OpCount() as c:
         fn()
     return c.ops
+
+
+def count_calls(fn) -> int:
+    """The aten operations fn dispatches (each ~10 µs of host time when the
+    path is eager)."""
+    with _OpCount() as c:
+        fn()
+    return c.calls
 
 
 def bound(nbytes: int, ops: int):
@@ -756,7 +823,7 @@ def check_substep_and_fk_xy(mc, phys, params, tau, push, surface, dt, grav,
                     lambda: sp.step_rows(mc, in_rows, surf_rows, dt, grav))
     fk_in = sp.pack_fk_in(phys)
     xy_err = 0.0
-    for num in (NUM_ENVS,) + RAGGED:
+    for num in (fk_in.shape[1],) + RAGGED:
         part = ragged_columns((fk_in,), num)[0]
         xy_k = sp.fk_xy_rows(mc, part)
         xy_p = sp.fk_xy_rows_plain(mc, part)
@@ -1674,6 +1741,532 @@ def table_phase(mc_pf, mc_any):
             f"(reps {cond['reps_steps_per_sec']}, {cond['settle_iters']} "
             f"settle iterations), table {cond['table_steps_per_sec']:.1f}")
 
+# ------------------------ 15. gait-MPC and iLQR closed loops, 4096 scenarios
+
+def step_batched_launches(rows: int, steps: int) -> dict:
+    """Launches of `steps` calls of dynamics.step_batched on `rows` CUDA
+    rows with a terrain that has no `is_flat` (analytic.FLAT): its route
+    by row count (physics/dynamics.py)."""
+    if rows >= dynamics.MEGA_MIN_BATCH:
+        return {"substep": steps, "fk_contact_xy": steps}
+    if rows >= dynamics.CHOL_MIN_BATCH:
+        return {"chol_solve": steps}
+    return {}
+
+
+def add_counts(*counts: dict) -> dict:
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def check_loop_step(model, params, phys, tau, dt, what: str):
+    """Kernels 3 and 4 of `model` against their plain versions on the
+    inputs one dynamics.step_batched call of a phase-15 loop gives them:
+    analytic.FLAT queried at the spheres' xy, no push, the default gravity.
+    Returns (substep max |err|, fk_contact_xy max |err|)."""
+    xy = sp.fk_contact_xy_plain(model, phys)
+    surface = query_surface(FLAT, xy[..., 0], xy[..., 1])
+    out = check_substep_and_fk_xy(
+        sp.model_consts(model), phys, params.broadcast(xy.shape[0]), tau,
+        torch.zeros_like(phys.base_pos), surface, dt, 9.81, what)
+    return out[4], out[5]
+
+
+def perturbed_start(stack, num: int, seed: int):
+    """`num` scenarios at the stack's spawn pose with sigma = GAIT_SIGMA
+    m/s of noise on the base linear and angular velocities."""
+    ctrl = stack.ctrl
+    dev = ctrl.default_qpos.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    phys = PhysicsState.default(ctrl.model, stack.q0, num, dev,
+                                base_height=stack.z0)
+    return phys.replace(
+        base_lin_vel=GAIT_SIGMA * torch.randn(num, 3, generator=g,
+                                              device=dev),
+        base_ang_vel=GAIT_SIGMA * torch.randn(num, 3, generator=g,
+                                              device=dev))
+
+
+def gait_lqr_kernel(stack, phys, cmd):
+    """[gait-lqr]: kernel 6 on the frozen-contact SRB problems of the first
+    gait tick of the battery, against sequential_srb_lqr."""
+    ctrl = stack.ctrl
+    T = ctrl.srb.horizon
+    gs = ctrl.init(phys.base_pos.shape[0], phys)
+    prob = ctrl.srb_tick_problem(phys, ctrl.placement(phys, cmd, gs))
+    staged = rk.stage(*prob)
+    err = check_srb_lqr(staged, T, "gait tick problems m=6")
+    fs_k = rk.srb_lqr(*prob, horizon=T)
+    fs_p = srb.sequential_srb_lqr(*prob, horizon=T)[0]
+    torch.cuda.synchronize()
+    f_err, f_share = check_close(fs_k, fs_p, LQR_TOL, LQR_TOL,
+                                 "gait tick: kernel 6 vs sequential_srb_lqr")
+    check_same_bits("srb_lqr gait tick problems",
+                    lambda: rk.srb_lqr_lanes(*staged, T))
+    log(f"[gait-lqr] PointFoot gait tick, {NUM_ENVS} scenarios: kernel 6 "
+        f"vs sequential_srb_lqr max |err| {f_err:.3g} N "
+        f"({100 * f_share:.2g}% of rtol/atol {LQR_TOL})")
+    return max(err, f_err), prob
+
+
+def gait_layers(stack, phys, cmd, gs, params, prob):
+    """A PointFoot gait tick split into its stages, and its op count."""
+    ctrl = stack.ctrl
+    plan = ctrl.placement(phys, cmd, gs)
+    f0, _ = ctrl.stance_force(phys, plan)
+    tau = ctrl.torques(phys, plan, f0)
+    dt = stack.ctrl_dt / stack.substeps
+
+    def physics():
+        p = phys
+        for _ in range(stack.substeps):
+            p = dynamics.step_batched(ctrl.model, params, p, tau, FLAT, dt)
+        return p
+
+    layers = {
+        "tick (control)": cuda_ms(lambda: ctrl.control(phys, cmd, gs), 5),
+        "FK and placement": cuda_ms(
+            lambda: ctrl.placement(phys, cmd, gs), 5),
+        "SRB assembly": cuda_ms(lambda: ctrl.srb_tick_problem(phys, plan),
+                                5),
+        "kernel 6 (wrapper, staging included)": cuda_ms(
+            lambda: rk.srb_lqr(*prob, horizon=ctrl.srb.horizon), 10),
+        "torque map": cuda_ms(lambda: ctrl.torques(phys, plan, f0), 5),
+        f"{stack.substeps} physics substeps (step_batched)": cuda_ms(
+            physics, 5),
+    }
+    log_layers(f"gait tick, PointFoot, {NUM_ENVS} scenarios", layers)
+    log(f"[layers] a PointFoot gait tick dispatches "
+        f"{count_calls(lambda: ctrl.control(phys, cmd, gs))} aten operations")
+
+
+def gait_loop(stack, phys, cmd, ticks: int, params, track):
+    """Drive `ticks` control ticks, each followed by the stack's physics
+    substeps through dynamics.step_batched on analytic.FLAT; `track(tick,
+    phys)` sees every post-tick state.  Returns (wall s, launches)."""
+    ctrl = stack.ctrl
+    gs = ctrl.init(phys.base_pos.shape[0], phys)
+    dt = stack.ctrl_dt / stack.substeps
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for tick in range(ticks):
+        tau, gs = ctrl.control(phys, cmd, gs)
+        for _ in range(stack.substeps):
+            phys = dynamics.step_batched(ctrl.model, params, phys, tau, FLAT,
+                                         dt)
+        track(tick, phys)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, read_counts(), phys
+
+
+def gait_phase() -> dict:
+    """[gait-lqr], [gait] and [gait-a1], with kernels 3 and 4 of PointFoot
+    and A1 held to their plain versions on each loop's first
+    step_batched inputs; returns the launches of kernels 6, 4 and 3 in the
+    two loops and the kernels' max |err|s."""
+    stack = gait_mpc.make_controller("pointfoot")
+    ctrl = stack.ctrl
+    dev = ctrl.default_qpos.device
+    params = PhysicsParams.nominal(ctrl.model, NUM_ENVS, dev)
+    phys0 = perturbed_start(stack, NUM_ENVS, GAIT_SEED)
+    cmd = torch.tensor([GAIT_VX, 0.0, 0.0], device=dev).expand(NUM_ENVS, 3)
+    err, prob = gait_lqr_kernel(stack, phys0, cmd)
+    tau0, _ = ctrl.control(phys0, cmd, ctrl.init(NUM_ENVS, phys0))
+    step_errs = [check_loop_step(ctrl.model, params, phys0, tau0,
+                                 stack.ctrl_dt / stack.substeps,
+                                 "PointFoot gait tick 1")]
+
+    min_z = torch.full((NUM_ENVS,), float("inf"), device=dev)
+    vx_sum = torch.zeros(NUM_ENVS, device=dev)
+
+    def track(tick, p):
+        torch.minimum(min_z, p.base_pos[:, 2], out=min_z)
+        if tick >= GAIT_VX_FROM:
+            vx_sum.add_(p.base_lin_vel[:, 0])
+
+    wall, launches, phys = gait_loop(stack, phys0, cmd, GAIT_TICKS, params,
+                                     track)
+    expect_counts(launches, srb_lqr=GAIT_TICKS, **step_batched_launches(
+        NUM_ENVS, GAIT_TICKS * stack.substeps))
+    up = min_z >= GAIT_FALL_Z
+    fall_share = 1.0 - float(up.float().mean())
+    vx = float(vx_sum[up].mean()) / (GAIT_TICKS - GAIT_VX_FROM)
+    rate = NUM_ENVS * GAIT_TICKS / wall
+    log(f"[gait] PointFoot gait-MPC, {NUM_ENVS} scenarios, flat, cmd vx "
+        f"{GAIT_VX}, sigma {GAIT_SIGMA} m/s, {GAIT_TICKS} ticks x "
+        f"{stack.substeps} substeps in {wall:.2f} s: fall share "
+        f"{fall_share:.4f} (base below {GAIT_FALL_Z} m; bound "
+        f"{GAIT_MAX_FALL_SHARE}), mean vx {vx:.4f} m/s over ticks "
+        f"{GAIT_VX_FROM}-{GAIT_TICKS} of the scenarios that stayed up, "
+        f"{rate:.1f} scenario-ticks/s, {rate / (NUM_ENVS * 50.0):.4f} x "
+        f"real time ({NUM_ENVS} x 50 Hz), {wall / GAIT_TICKS * 1e3:.2f} "
+        f"ms/tick, launches {launches}")
+    if not bool(torch.isfinite(phys.base_pos).all()) or \
+            fall_share > GAIT_MAX_FALL_SHARE:
+        raise AssertionError(f"gait closed loop: fall share {fall_share} "
+                             f"above {GAIT_MAX_FALL_SHARE} or non-finite")
+    gait_layers(stack, phys0, cmd, ctrl.init(NUM_ENVS, phys0), params, prob)
+
+    a1 = gait_mpc.make_controller("a1")
+    params = PhysicsParams.nominal(a1.ctrl.model, NUM_ENVS, dev)
+    phys0 = PhysicsState.default(a1.ctrl.model, a1.q0, NUM_ENVS, dev,
+                                 base_height=a1.z0)
+    min_z = torch.full((NUM_ENVS,), float("inf"), device=dev)
+    max_tilt = torch.zeros(NUM_ENVS, device=dev)
+    vx_sum.zero_()
+    down = torch.tensor([0.0, 0.0, -1.0], device=dev).expand(NUM_ENVS, 3)
+    tau0, _ = a1.ctrl.control(phys0, cmd, a1.ctrl.init(NUM_ENVS, phys0))
+    step_errs.append(check_loop_step(a1.ctrl.model, params, phys0, tau0,
+                                     a1.ctrl_dt / a1.substeps,
+                                     "A1 trot tick 1"))
+
+    def track_a1(tick, p):
+        torch.minimum(min_z, p.base_pos[:, 2], out=min_z)
+        grav_b = quat.rotate_inverse(p.base_quat, down)
+        torch.maximum(max_tilt, torch.arccos(torch.clamp(-grav_b[:, 2], -1,
+                                                         1)), out=max_tilt)
+        if tick >= A1_VX_FROM:
+            vx_sum.add_(p.base_lin_vel[:, 0])
+
+    a1_calls = count_calls(lambda: a1.ctrl.control(
+        phys0, cmd, a1.ctrl.init(NUM_ENVS, phys0)))
+    wall, a1_launches, phys = gait_loop(a1, phys0, cmd, A1_TICKS, params,
+                                        track_a1)
+    expect_counts(a1_launches, **step_batched_launches(
+        NUM_ENVS, A1_TICKS * a1.substeps))
+    rec = {"min_z": float(min_z.min()), "max_tilt": float(max_tilt.max()),
+           "mean_vx": float(vx_sum.mean()) / (A1_TICKS - A1_VX_FROM)}
+    rate = NUM_ENVS * A1_TICKS / wall
+    log(f"[gait-a1] A1 trot, {NUM_ENVS} scenarios, flat, cmd vx {GAIT_VX}, "
+        f"{A1_TICKS} ticks at 200 Hz in {wall:.2f} s: {json.dumps(rec)} "
+        f"(mean vx over ticks {A1_VX_FROM}-{A1_TICKS}), {rate:.1f} "
+        f"scenario-ticks/s, {rate / (NUM_ENVS * 200.0):.4f} x real time "
+        f"({NUM_ENVS} x 200 Hz), {wall / A1_TICKS * 1e3:.2f} ms/tick "
+        f"({a1_calls} aten operations a tick), launches {a1_launches}")
+    if not (rec["min_z"] > 0.15 and rec["max_tilt"] < 0.3
+            and rec["mean_vx"] > 0.2):
+        raise AssertionError(f"A1 trot outside the bounds of "
+                             f"tests/test_gait.py:395-437: {rec}")
+    return dict(err=err, launches=add_counts(launches, a1_launches),
+                substep_err=max(e[0] for e in step_errs),
+                fk_xy_err=max(e[1] for e in step_errs))
+
+
+def ilqr_layers(ctrl, phys, cmd, ms):
+    """One chunk of a plan split into its layers, and the linearization's
+    peak memory."""
+    C = ctrl.chunk
+    T = ctrl.cfg.horizon
+    x0 = mpc_costs.state_to_vec(phys)[:C]
+    us = ms.us_warm[:C]
+    cost_fn = ctrl.cost_fn(cmd[:C])
+    with torch.no_grad():
+        xs = ilqr._rollout(ctrl.dyn, x0, us)
+        derivs = ilqr._linearize(ctrl.dyn_plain, cost_fn, xs, us, T)
+        Ks, ks, _ = ilqr.backward_pass(*derivs, ctrl.cfg.reg_init)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        derivs = ilqr._linearize(ctrl.dyn_plain, cost_fn, xs, us, T)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        layers = {
+            "rollout": cuda_ms(lambda: ilqr._rollout(ctrl.dyn, x0, us), 2,
+                               warmup=1),
+            "linearization": cuda_ms(lambda: ilqr._linearize(
+                ctrl.dyn_plain, cost_fn, xs, us, T), 2, warmup=1),
+            "backward pass": cuda_ms(lambda: ilqr.backward_pass(
+                *derivs, ctrl.cfg.reg_init), 2, warmup=1),
+            "forward pass (line search)": cuda_ms(
+                lambda: ilqr._forward_pass(ctrl.dyn, cost_fn, xs, us, Ks, ks,
+                                           ctrl.cfg.alphas, T), 2, warmup=1),
+        }
+    log_layers(f"iLQR plan, one chunk of {C} scenarios (a plan: "
+               f"{NUM_ENVS // C} chunks x (rollout + {ctrl.cfg.iterations} x "
+               f"(linearization + backward + forward)))", layers)
+    log(f"[ilqr] linearization peak memory {peak / 2**30:.2f} GiB a chunk of "
+        f"{C} scenarios ({(ctrl.nx + ctrl.nj) * C * T} replicated rows)")
+
+
+def ilqr_check_solve(dev: torch.device, num: int, horizon: int,
+                     nudge: int = 0, plain: bool = False,
+                     capture: dict | None = None):
+    """MPCController.solve of `num` perturbed PointFoot scenarios on `dev`
+    (bench.make_mpc_ilqr's controller at `horizon`) from a seeded state,
+    warm start and commands.  A `nudge` seed first moves the velocities by
+    about one float32 ulp; `plain` steps the rollouts and the line search
+    with dyn_plain instead of the kernel routes of dyn; `capture` receives
+    the controller and the (x, u) rows of the first line-search step."""
+    ctrl, phys, _, _ = bench.make_mpc_ilqr(num, dev)
+    ctrl.cfg = replace(ctrl.cfg, horizon=horizon)
+    g = torch.Generator().manual_seed(ILQR_CHECK_SEED)
+
+    def randn(*shape, gen=g):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    phys = phys.replace(
+        base_pos=phys.base_pos + 0.02 * randn(num, 3),
+        base_quat=quat.normalize(phys.base_quat + 0.03 * randn(num, 4)),
+        base_lin_vel=0.2 * randn(num, 3), base_ang_vel=0.2 * randn(num, 3),
+        qpos=0.1 * randn(num, 6), qvel=0.3 * randn(num, 6))
+    us_warm = 0.5 * randn(num, horizon, 6)
+    cmd = 0.3 * randn(num, 3)
+    if nudge:
+        gn = torch.Generator().manual_seed(nudge)
+        phys = phys.replace(
+            base_lin_vel=phys.base_lin_vel * (1 + 1.2e-7 * randn(num, 3,
+                                                                 gen=gn)),
+            qvel=phys.qvel * (1 + 1.2e-7 * randn(num, 6, gen=gn)))
+    if plain:
+        ctrl.dyn = ctrl.dyn_plain
+    if capture is not None:
+        dyn, rows = ctrl.dyn, len(ctrl.cfg.alphas) * num
+
+        def dyn_capture(x, u):
+            if x.shape[0] == rows and "x" not in capture:
+                capture.update(ctrl=ctrl, x=x.clone(), u=u.clone())
+            return dyn(x, u)
+
+        ctrl.dyn = dyn_capture
+    sol = ctrl.solve(phys, cmd, us_warm)
+    return sol.us.cpu(), sol.cost.cpu(), sol.improved.cpu(), ctrl.cfg
+
+
+def ilqr_check():
+    """[ilqr-check]: the card's MPCController.solve against the CPU port's,
+    from the same perturbed states, warm start and commands: the controls
+    (the torque and the warm start the plan leaves), the costs, and the
+    improved flags exactly; and kernels 3 and 4 held to their plain
+    versions on the card solve's first line-search step.  Returns their
+    max |err|s."""
+    torch.cuda.synchronize()
+    reset_counts()
+    batch = {}
+    us_c, cost_c, imp_c, cfg = ilqr_check_solve(
+        bench.resolve_device(None), ILQR_CHECK_ENVS, ILQR_CHECK_HORIZON,
+        capture=batch)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    T, A = cfg.horizon, len(cfg.alphas)
+    expect_counts(launches, **add_counts(
+        step_batched_launches(ILQR_CHECK_ENVS, T),
+        *[step_batched_launches(A * ILQR_CHECK_ENVS, T)] * cfg.iterations))
+    ctrl = batch["ctrl"]
+    step_errs = check_loop_step(
+        ctrl.model, ctrl.params,
+        mpc_costs.vec_to_state(batch["x"], PhysicsState.default(
+            ctrl.model, ctrl.default_qpos, 1, ctrl.default_qpos.device),
+            ctrl.nj),
+        torch.minimum(torch.maximum(batch["u"], -ctrl.model.effort_limit),
+                      ctrl.model.effort_limit),
+        ctrl.dt / ctrl.substeps, "PointFoot iLQR line search")
+    cpu = torch.device("cpu")
+    us_p, cost_p, imp_p, _ = ilqr_check_solve(cpu, ILQR_CHECK_ENVS,
+                                              ILQR_CHECK_HORIZON)
+    # the CPU's own sensitivity: the same solve from velocities nudged by
+    # one ulp
+    us_n, cost_n, imp_n, _ = ilqr_check_solve(cpu, ILQR_CHECK_ENVS,
+                                              ILQR_CHECK_HORIZON, nudge=1)
+    flips = torch.nonzero(imp_c != imp_p).flatten().tolist()
+    (u_rtol, u_atol), (c_rtol, c_atol) = ILQR_CHECK_TOL
+
+    def errs(us, cost):
+        return (float((us - us_p).abs().max()),
+                float(((cost - cost_p).abs() / cost_p.abs()).max()))
+
+    u_err, c_err = errs(us_c, cost_c)
+    u_nudge, c_nudge = errs(us_n, cost_n)
+    log(f"[ilqr-check] card vs CPU, {ILQR_CHECK_ENVS} perturbed scenarios, "
+        f"horizon {T}, {cfg.iterations} iterations: improved "
+        f"{int(imp_c.sum())} / {int(imp_p.sum())} of {ILQR_CHECK_ENVS}, "
+        f"flags differing at {flips}; controls max |err| {u_err:.3g} N·m of "
+        f"up to {float(us_p.abs().max()):.3g}, costs max relative err "
+        f"{c_err:.3g}; the CPU's own solve from velocities nudged by one "
+        f"ulp moved by {u_nudge:.3g} N·m and {c_nudge:.3g} relative, "
+        f"{int((imp_n != imp_p).sum())} flags; launches {launches}")
+    if flips:
+        raise AssertionError(
+            f"[ilqr-check] improved flags differ at scenarios {flips}: card "
+            f"{imp_c[flips].tolist()} cost {cost_c[flips].tolist()}, CPU "
+            f"{imp_p[flips].tolist()} cost {cost_p[flips].tolist()}")
+    check_close(us_c, us_p, u_rtol, u_atol, "[ilqr-check] controls")
+    check_close(cost_c, cost_p, c_rtol, c_atol, "[ilqr-check] costs")
+    return step_errs
+
+
+def ilqr_witness():
+    """[ilqr-witness]: the card's solve at the bench's horizon through the
+    kernel routes against the same solve through the plain dynamics.step
+    on the card, beside the plain route's own moves under one-ulp nudges
+    (ILQR_WITNESS_NUDGES); then the card against the CPU on
+    ILQR_WITNESS_CPU_ENVS scenarios at that horizon, each scenario apart
+    held to the card's nudged solves."""
+    dev = bench.resolve_device(None)
+    (u_rtol, u_atol), (c_rtol, c_atol) = ILQR_CHECK_TOL
+
+    def solve(**kw):
+        return ilqr_check_solve(dev, ILQR_CHECK_ENVS, ILQR_WITNESS_HORIZON,
+                                **kw)
+
+    def beyond(got, ref):
+        """(B,) scenarios whose controls or cost leave ILQR_CHECK_TOL."""
+        du = (got[0] - ref[0]).abs().flatten(1)
+        lim = u_atol + u_rtol * ref[0].abs().flatten(1)
+        dc = (got[1] - ref[1]).abs()
+        return (du > lim).any(1) | (dc > c_atol + c_rtol * ref[1].abs())
+
+    def moved(got, ref):
+        """Scenarios beyond the tolerance, flipped improved flags, and the
+        largest control move (N·m)."""
+        return (int(beyond(got, ref).sum()), int((got[2] != ref[2]).sum()),
+                float((got[0] - ref[0]).abs().max()))
+
+    torch.cuda.synchronize()
+    reset_counts()
+    kern = solve()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    cfg = kern[3]
+    T, A = cfg.horizon, len(cfg.alphas)
+    expect_counts(launches, **add_counts(
+        step_batched_launches(ILQR_CHECK_ENVS, T),
+        *[step_batched_launches(A * ILQR_CHECK_ENVS, T)] * cfg.iterations))
+    plain = solve(plain=True)
+    got = moved(kern, plain)
+    nudged = [moved(solve(plain=True, nudge=k), plain)
+              for k in ILQR_WITNESS_NUDGES]
+    log(f"[ilqr-witness] {ILQR_CHECK_ENVS} perturbed scenarios, horizon "
+        f"{T}, {cfg.iterations} iterations, improved {int(kern[2].sum())} "
+        f"of {ILQR_CHECK_ENVS}: kernel routes vs the plain dynamics.step on "
+        f"the card: {got[0]} scenarios beyond {ILQR_CHECK_TOL}, {got[1]} "
+        f"flags flipped, controls moved up to {got[2]:.4g} N·m; the plain "
+        f"route nudged by one ulp (seeds {ILQR_WITNESS_NUDGES}): "
+        f"{[n[0] for n in nudged]} scenarios, {[n[1] for n in nudged]} "
+        f"flags, up to {[round(n[2], 4) for n in nudged]} N·m; launches "
+        f"{launches}")
+    if got[0] > min(n[0] for n in nudged) or \
+            got[1] > min(n[1] for n in nudged):
+        raise AssertionError(
+            f"[ilqr-witness] the kernel routes moved the horizon-{T} solve "
+            f"more than a one-ulp nudge of the plain route: {got} against "
+            f"{nudged}")
+
+    num = ILQR_WITNESS_CPU_ENVS
+    card = ilqr_check_solve(dev, num, T)
+    cpu = ilqr_check_solve(torch.device("cpu"), num, T)
+    apart = beyond(card, cpu)
+    landed = torch.stack([
+        ~beyond(ilqr_check_solve(dev, num, T, nudge=k), cpu)
+        for k in ILQR_WITNESS_CPU_NUDGES]).any(0)
+    gap = (card[0] - cpu[0]).abs().flatten(1).amax(1)
+    log(f"[ilqr-witness] {num} perturbed scenarios, horizon {T}, card vs "
+        f"CPU: scenarios {torch.nonzero(apart).flatten().tolist()} beyond "
+        f"the tolerance (controls {[round(v, 4) for v in gap.tolist()]} "
+        f"N·m apart), of which "
+        f"{torch.nonzero(apart & landed).flatten().tolist()} land on the "
+        f"CPU's solution under a one-ulp nudge of the card (seeds "
+        f"{ILQR_WITNESS_CPU_NUDGES})")
+    if bool((apart & ~landed).any()) or not torch.equal(card[2], cpu[2]):
+        raise AssertionError(
+            f"[ilqr-witness] card vs CPU at horizon {T}: scenarios "
+            f"{torch.nonzero(apart & ~landed).flatten().tolist()} apart "
+            f"under every nudge, or improved flags differ")
+
+
+def ilqr_phase() -> dict:
+    """[ilqr], [ilqr-check], [ilqr-witness] and [mpc-balance]; returns the
+    launches of one bench run and the max |err|s of kernels 3 and 4 on a
+    line-search step."""
+    torch.cuda.synchronize()
+    reset_counts()
+    rec = bench.main_mpc_ilqr(NUM_ENVS, iters=ILQR_ITERS, chunk=ILQR_CHUNK)
+    launches = read_counts()
+    plans = 1 + ILQR_ITERS
+    chunks = NUM_ENVS // ILQR_CHUNK
+    A = len(ilqr.ILQRConfig().alphas)
+    T, iters = rec["conditions"]["horizon"], rec["conditions"]["iterations"]
+    per_chunk = add_counts(
+        step_batched_launches(ILQR_CHUNK, T),  # the initial rollout
+        *[step_batched_launches(A * ILQR_CHUNK, T)] * iters)  # line search
+    expect_counts(launches, **{k: v * plans * chunks
+                               for k, v in per_chunk.items()})
+    if rec["metric"] != f"ilqr_scenario_solves_per_sec@{NUM_ENVS}" or \
+            not rec["value"] > 0:
+        raise AssertionError(f"bench record {rec}")
+    log(f"[ilqr] full-model iLQR, PointFoot, {NUM_ENVS} scenarios in chunks "
+        f"of {ILQR_CHUNK}, horizon {T}, {iters} iterations: "
+        f"{rec['value']:.1f} solves/s, {rec['conditions']['s_per_plan']:.3f}"
+        f" s a plan, {rec['vs_baseline']:.6f} x real time ({NUM_ENVS} x "
+        f"50 Hz), launches of {plans} plans {launches}")
+    ctrl, phys, cmd, ms = bench.make_mpc_ilqr(
+        NUM_ENVS, bench.resolve_device(None), ILQR_CHUNK)
+    ilqr_layers(ctrl, phys, cmd, ms)
+    substep_err, fk_xy_err = ilqr_check()
+    ilqr_witness()
+    mpc_balance()
+    return dict(launches=launches, substep_err=substep_err,
+                fk_xy_err=fk_xy_err)
+
+
+def mpc_balance():
+    """[mpc-balance]: the recipe of tests/test_mpc.py:110-175 at
+    BALANCE_ENVS scenarios for BALANCE_TICKS ticks (the recipe's 50 take
+    ~9 minutes of eager host time), with its gates; the same robot given
+    no torque must fail them in that time, so the cut gate still
+    separates a standing robot from a falling one."""
+    dev = bench.resolve_device(None)
+    model = get_model("pointfoot").to(dev)
+    ctrl = MPCController(model, PhysicsParams.nominal(model, 1, dev), FLAT,
+                         np.zeros(6, np.float32),
+                         weights=mpc_costs.CostWeights(base_height=50.0),
+                         cfg=ilqr.ILQRConfig(horizon=15, iterations=5,
+                                             reg_init=0.1),
+                         dt=0.02, substeps=4)
+    params = PhysicsParams.nominal(model, BALANCE_ENVS, dev)
+    phys = PhysicsState.default(model, np.zeros(6, np.float32), BALANCE_ENVS,
+                                dev, base_height=0.62)
+    command = torch.zeros(BALANCE_ENVS, 3, device=dev)
+    ms = ctrl.init(BALANCE_ENVS)
+    min_z = torch.full((BALANCE_ENVS,), float("inf"), device=dev)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(BALANCE_TICKS):
+        torque, ms, cost = ctrl.plan(phys, command, ms)
+        for _ in range(4):
+            phys = dynamics.step_batched(model, params, phys, torque, FLAT,
+                                         0.005)
+        torch.minimum(min_z, phys.base_pos[:, 2], out=min_z)
+        finite &= torch.isfinite(cost).all()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # the gate's teeth at this depth: the same robot given no torque
+    idle = PhysicsState.default(model, np.zeros(6, np.float32), 1, dev,
+                                base_height=0.62)
+    idle_params = PhysicsParams.nominal(model, 1, dev)
+    for _ in range(4 * BALANCE_TICKS):
+        idle = dynamics.step_batched(model, idle_params, idle,
+                                     torch.zeros(1, 6, device=dev), FLAT,
+                                     0.005)
+    rec = {"min_z": float(min_z.min()),
+           "min_final_z": float(phys.base_pos[:, 2].min()),
+           "min_abs_quat_w": float(phys.base_quat[:, 3].abs().min()),
+           "finite_costs": bool(finite),
+           "final_z_without_torque": float(idle.base_pos[0, 2])}
+    log(f"[mpc-balance] PointFoot iLQR balance, {BALANCE_ENVS} scenarios, "
+        f"horizon 15, 5 iterations, planner substeps 4, {BALANCE_TICKS} "
+        f"ticks x 4 substeps in {wall:.2f} s ({wall / BALANCE_TICKS:.3f} "
+        f"s/tick): {json.dumps(rec)}")
+    if not (rec["min_z"] > 0.40 and rec["min_final_z"] > 0.50
+            and rec["min_abs_quat_w"] > 0.95 and rec["finite_costs"]
+            and rec["final_z_without_torque"] < 0.50):
+        raise AssertionError(f"MPC balance outside the bounds of "
+                             f"tests/test_mpc.py:110-175: {rec}")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1727,6 +2320,17 @@ def main() -> int:
                 FLAT_TRAIN_TIMED, "train-flat", card_vs_cpu=False)
     log(f"[t] plane training done at {time.perf_counter() - t_start:.1f} s")
     rnn_launches = recurrent_phase()
+    log(f"[t] recurrent policy done at {time.perf_counter() - t_start:.1f} s")
+    gait = gait_phase()
+    log(f"[t] gait-MPC done at {time.perf_counter() - t_start:.1f} s")
+    ilqr_run = ilqr_phase()
+    log(f"[t] iLQR done at {time.perf_counter() - t_start:.1f} s")
+    phase15 = {k: dict(gait_launches=gait["launches"].get(k, 0),
+                       ilqr_launches=ilqr_run["launches"][k])
+               for k in ("substep", "fk_contact_xy", "chol_solve", "srb_lqr")}
+    for k, err in (("substep", "substep_err"), ("fk_contact_xy", "fk_xy_err")):
+        phase15[k].update(gait_max_abs_err=gait[err],
+                          ilqr_max_abs_err=ilqr_run[err])
 
     kernels = [
         dict(kernel_record("rollout_substep_kernel", SUBSTEP_SRC,
@@ -1737,18 +2341,22 @@ def main() -> int:
                            "pointfoot_tpu/ops/pallas/substep.py:328",
                            pf_launches["fk_from_state"], **fk),
              rnn_train_launches=rnn_launches["fk_from_state"]),
-        kernel_record("substep_kernel", SUBSTEP_SRC,
-                      "pointfoot_tpu/ops/pallas/substep.py:65",
-                      any_launches["substep"], **sub),
-        kernel_record("fk_contact_xy_kernel", SUBSTEP_SRC,
-                      "pointfoot_tpu/ops/pallas/substep.py:201",
-                      any_launches["fk_contact_xy"], **fkxy),
-        kernel_record("chol_solve_kernel", CHOL_SRC,
-                      "pointfoot_tpu/ops/pallas/cholesky.py:35",
-                      chol_launches["chol_solve"], **chol),
-        kernel_record("srb_lqr_kernel", RICCATI_SRC,
-                      "pointfoot_tpu/ops/pallas/riccati.py:32",
-                      mpc_launches["srb_lqr"], **lqr),
+        dict(kernel_record("substep_kernel", SUBSTEP_SRC,
+                           "pointfoot_tpu/ops/pallas/substep.py:65",
+                           any_launches["substep"], **sub),
+             **phase15["substep"]),
+        dict(kernel_record("fk_contact_xy_kernel", SUBSTEP_SRC,
+                           "pointfoot_tpu/ops/pallas/substep.py:201",
+                           any_launches["fk_contact_xy"], **fkxy),
+             **phase15["fk_contact_xy"]),
+        dict(kernel_record("chol_solve_kernel", CHOL_SRC,
+                           "pointfoot_tpu/ops/pallas/cholesky.py:35",
+                           chol_launches["chol_solve"], **chol),
+             **phase15["chol_solve"]),
+        dict(kernel_record("srb_lqr_kernel", RICCATI_SRC,
+                           "pointfoot_tpu/ops/pallas/riccati.py:32",
+                           mpc_launches["srb_lqr"], **lqr),
+             **phase15["srb_lqr"], gait_max_abs_err=gait["err"]),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

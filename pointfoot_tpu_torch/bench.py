@@ -1,5 +1,5 @@
-"""Benchmarks of the port (the `main`, `main_mpc` and `main_train` of the
-JAX package's bench.py).
+"""Benchmarks of the port (the `main`, `main_mpc`, `main_mpc_ilqr` and
+`main_train` of the JAX package's bench.py).
 
     python -m pointfoot_tpu_torch.bench --mode env
     python -m pointfoot_tpu_torch.bench --mode actuator_net
@@ -7,6 +7,9 @@ JAX package's bench.py).
     python -m pointfoot_tpu_torch.bench --mode mpc
     python -m pointfoot_tpu_torch.bench --mode mpc --solver plain
     python -m pointfoot_tpu_torch.bench --mode mpc --device cpu --num_envs 8
+    python -m pointfoot_tpu_torch.bench --mode mpc_ilqr
+    python -m pointfoot_tpu_torch.bench --mode mpc_ilqr --device cpu \
+        --num_envs 2 --iters 1
     python -m pointfoot_tpu_torch.bench --mode env --device cpu \
         --num_envs 2 --iters 1 --reps 1 --steps 2
 
@@ -45,8 +48,17 @@ kernel` (default) plans with the fused SRB-LQR kernel
 (`SRBController.plan_tick_cuda`), `--solver plain` with the sequential
 Riccati recursion (`plan_tick`).
 
-Runs on the GPU unless --device names another.  The `env_phases` and
-`mpc_ilqr` modes of the JAX package's bench.py are not ported yet.
+`--mode mpc_ilqr`: the full-model iLQR (mpc/controller.MPCController):
+PointFoot, `--num_envs` scenarios (4096), ILQRConfig(horizon=25,
+iterations=2, reg_init=1.0), dt 0.02, the default pose at 0.62 m and zero
+commands, planned in chunks of `--chunk` scenarios (1024, the JAX bench's
+BENCH_ILQR_CHUNK); one warm plan, then `--iters` timed plans (3), each
+from the same state with the warm start the previous plan left, as the
+JAX bench times them; vs_baseline = solves/s over real time, num_envs x
+50 Hz.
+
+Runs on the GPU unless --device names another.  The `env_phases` mode of
+the JAX package's bench.py is not ported yet.
 """
 
 from __future__ import annotations
@@ -60,15 +72,19 @@ import numpy as np
 import torch
 
 from pointfoot_tpu_torch.device import resolve_device
+from pointfoot_tpu_torch.mpc.controller import MPCController
+from pointfoot_tpu_torch.mpc.ilqr import ILQRConfig
 from pointfoot_tpu_torch.mpc.srb import SRBConfig, SRBController
 from pointfoot_tpu_torch.physics.assets import get_model
 from pointfoot_tpu_torch.physics.model import PhysicsParams, PhysicsState
+from pointfoot_tpu_torch.terrain.analytic import FLAT
 from pointfoot_tpu_torch.utils.policy_eval import FLAGSHIP_PATCH
 from pointfoot_tpu_torch.utils.registry import make_alg_runner, make_env
 
 MODES = ("env", "env_phases", "mpc", "mpc_ilqr", "actuator_net", "train")
 SOLVERS = ("kernel", "plain")
-ITERS = {"env": 20, "actuator_net": 20, "mpc": 20, "train": 1}  # --iters
+ITERS = {"env": 20, "actuator_net": 20, "mpc": 20, "mpc_ilqr": 3,
+         "train": 1}  # --iters
 ENV_TASKS = {"env": "pointfoot_rough", "actuator_net": "anymal_c_rough"}
 STEPS_PER_ITER = 24
 SETTLE_MAX, SETTLE_AGREE = 8, 0.15
@@ -135,6 +151,52 @@ def main_mpc(num_envs: int = 4096, iters: int = 20, reps: int = 3,
                        "horizon": ctrl.cfg.horizon,
                        "iters": iters,
                        "reps_solves_per_sec": [round(r, 1) for r in rates],
+                       "card": card_line(device)},
+    }
+    print(json.dumps(record), flush=True)
+    return record
+
+
+def make_mpc_ilqr(num_envs: int, device: torch.device, chunk: int = 1024):
+    """The iLQR benchmark's controller, state, commands and warm start."""
+    model = get_model("pointfoot").to(device)
+    ctrl = MPCController(
+        model, PhysicsParams.nominal(model, 1, device), FLAT,
+        np.zeros(6, np.float32),
+        cfg=ILQRConfig(horizon=25, iterations=2, reg_init=1.0), dt=0.02,
+        chunk=chunk)
+    phys = PhysicsState.default(model, np.zeros(6, np.float32), num_envs,
+                                device, base_height=0.62)
+    cmd = torch.zeros(num_envs, 3, device=device)
+    return ctrl, phys, cmd, ctrl.init(num_envs)
+
+
+def main_mpc_ilqr(num_envs: int = 4096, iters: int = 3, chunk: int = 1024,
+                  device=None) -> dict:
+    """Time full-model iLQR plans and return (and print) the record."""
+    device = resolve_device(device)
+    chunk = min(chunk, num_envs)
+    ctrl, phys, cmd, ms = make_mpc_ilqr(num_envs, device, chunk)
+    torque, ms, cost = ctrl.plan(phys, cmd, ms)
+    _sync(device)
+    if not (bool(torch.isfinite(torque).all())
+            and bool(torch.isfinite(cost).all())):
+        raise RuntimeError("iLQR plan returned non-finite torques or costs")
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        torque, ms, cost = ctrl.plan(phys, cmd, ms)
+    _sync(device)
+    dt = (time.perf_counter() - t0) / iters
+    solves_per_sec = num_envs / dt
+    record = {
+        "metric": f"ilqr_scenario_solves_per_sec@{num_envs}",
+        "value": round(solves_per_sec, 3),
+        "unit": "solves/s",
+        "vs_baseline": round(solves_per_sec / (num_envs * 50.0), 6),
+        "conditions": {"horizon": ctrl.cfg.horizon,
+                       "iterations": ctrl.cfg.iterations,
+                       "chunk": chunk, "reps": iters,
+                       "s_per_plan": round(dt, 4),
                        "card": card_line(device)},
     }
     print(json.dumps(record), flush=True)
@@ -273,6 +335,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--steps", type=int, default=STEPS_PER_ITER,
                     help="policy steps an iteration (env modes)")
     ap.add_argument("--solver", choices=SOLVERS, default="kernel")
+    ap.add_argument("--chunk", type=int, default=1024,
+                    help="scenarios an iLQR solve (mpc_ilqr)")
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
     if args.mode not in ITERS:
@@ -286,6 +350,8 @@ def main(argv=None) -> dict:
                         args.reps, args.steps, args.device)
     if args.mode == "train":
         return main_train(args.num_envs, iters, args.reps, args.device)
+    if args.mode == "mpc_ilqr":
+        return main_mpc_ilqr(args.num_envs, iters, args.chunk, args.device)
     return main_mpc(args.num_envs, iters, args.reps, args.solver,
                     args.device)
 

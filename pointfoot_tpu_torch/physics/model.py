@@ -97,6 +97,15 @@ class PhysicsParams:
             contact_damping=full((), contact_damping),
         )
 
+    def broadcast(self, batch: int) -> "PhysicsParams":
+        """The parameters of `batch` rows: a one-row set expanded without a
+        copy (what a planner's single-env parameters become for its rows);
+        a set of `batch` rows is unchanged, and any other size raises."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).expand(
+                (batch,) + getattr(self, f.name).shape[1:])
+            for f in dataclasses.fields(self)})
+
 
 @dataclass(frozen=True)
 class PhysicsState:

@@ -12,6 +12,9 @@
   ignored.
 - `srb_problem_from_numpy`: the eight arrays of a batch of SRB-LQR problems
   (mpc/srb.srb_problem: F, c_tot, L, Xd, Ud, XTd, x0, f_ff) -> tensors.
+- `gait_state_from_numpy` / `mpc_state_from_numpy`: a JAX GaitState
+  (mpc/gait.py) or MPCState (mpc/controller.py) exported field by field ->
+  the port's, so a controller can go on from a state the JAX one reached.
 - `train_state_from_numpy`: a JAX TrainState (params, optax's Adam moments
   and count, learning rate, update count) of either network -> the state
   rl/ppo.PPO or RecurrentPPO loads, so a JAX checkpoint can be resumed by
@@ -31,6 +34,8 @@ import numpy as np
 import torch
 
 from pointfoot_tpu_torch.envs.legged_env import EnvState
+from pointfoot_tpu_torch.mpc.controller import MPCState
+from pointfoot_tpu_torch.mpc.gait import GaitState
 from pointfoot_tpu_torch.physics.model import PhysicsParams, PhysicsState
 
 
@@ -144,6 +149,21 @@ def srb_problem_from_numpy(arrays, device="cpu"):
     if len(arrays) != 8:
         raise ValueError(f"an SRB problem has 8 arrays, got {len(arrays)}")
     return tuple(_tensor(a, device) for a in arrays)
+
+
+def _named_tuple_from(cls, d: Mapping, device):
+    return cls(**{f: _tensor(d[f], device) for f in cls._fields})
+
+
+def gait_state_from_numpy(d: Mapping, device="cpu") -> GaitState:
+    """`d` maps GaitState field names (phase, liftoff_pos, target_pos,
+    v_int, cmd_f, ground_z, t) to arrays with the scenarios leading."""
+    return _named_tuple_from(GaitState, d, device)
+
+
+def mpc_state_from_numpy(d: Mapping, device="cpu") -> MPCState:
+    """`d` maps MPCState field names (us_warm, last_cost) to arrays."""
+    return _named_tuple_from(MPCState, d, device)
 
 
 def env_state_from_numpy(d: Mapping, device="cpu") -> EnvState:

@@ -441,3 +441,80 @@ def test_wrapper_refuses_grad_and_runs_under_no_grad(name):
     assert wrapper.launches == before + 1
     first = out[0] if isinstance(out, tuple) else out
     assert first.grad_fn is None and not first.requires_grad
+
+
+@pytest.mark.parametrize("name", ["rollout_step", "fk_rows", "step_rows",
+                                  "fk_xy_rows", "chol_solve_lanes",
+                                  "srb_lqr_lanes"])
+def test_wrapper_refuses_a_forward_tangent(name):
+    """A CUDA input carrying a forward-mode tangent raises, under no_grad
+    too (the kernel would drop the tangent), and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.autograd.forward_ad as fwAD
+
+    wrapper, call = _grad_cases()[name]
+    before = wrapper.launches
+    with fwAD.dual_level(), torch.no_grad():
+        g = fwAD.make_dual(torch.ones(1, device="cuda"),
+                           torch.ones(1, device="cuda"))
+        with pytest.raises(RuntimeError, match="forward-mode tangent"):
+            call(g)
+    assert wrapper.launches == before
+
+
+# ------------------------------------------ the gait-MPC and iLQR paths
+
+def test_gait_tick_solves_with_the_srb_lqr_kernel():
+    """The PointFoot gait tick's frozen-contact solve on the card is kernel
+    6, one launch a tick; its first force equals sequential_srb_lqr's on
+    the same problems within rtol/atol 2e-3 (tests/test_pallas.py:77-78)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pointfoot_tpu_torch.mpc import gait, srb
+    from pointfoot_tpu_torch.ops.cuda import riccati
+    from pointfoot_tpu_torch.physics.model import PhysicsState
+
+    stack = gait.make_controller("pointfoot", device="cuda")
+    ctrl = stack.ctrl
+    num = 1000
+    g = torch.Generator(device="cuda").manual_seed(0)
+    phys = PhysicsState.default(ctrl.model, stack.q0, num, "cuda",
+                                base_height=stack.z0)
+    phys = phys.replace(
+        base_lin_vel=0.15 * torch.randn(num, 3, generator=g, device="cuda"),
+        base_ang_vel=0.15 * torch.randn(num, 3, generator=g, device="cuda"))
+    gs = ctrl.init(num, phys)
+    cmd = torch.tensor([0.4, 0.0, 0.0], device="cuda").expand(num, 3)
+    prob = ctrl.srb_tick_problem(phys, ctrl.placement(phys, cmd, gs))
+    before = riccati.srb_lqr_lanes.launches
+    f0 = ctrl.solve_first_force(prob)
+    want = srb.sequential_srb_lqr(*prob, horizon=ctrl.srb.horizon)[0][:, 0]
+    torch.cuda.synchronize()
+    assert riccati.srb_lqr_lanes.launches == before + 1
+    torch.testing.assert_close(f0, want, rtol=2e-3, atol=2e-3)
+    tau, gs = ctrl.control(phys, cmd, gs)
+    torch.cuda.synchronize()
+    assert riccati.srb_lqr_lanes.launches == before + 2
+    assert bool(torch.isfinite(tau).all())
+
+
+def test_mpc_dyn_refuses_tangents_and_dyn_plain_carries_them():
+    """The planner's rollout dynamics take the kernel routes on the card
+    (256 scenarios replicated 30 times: the mega route), which refuse a
+    forward-mode tangent; its plain dynamics carry one, so the
+    linearization differentiates on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pointfoot_tpu_torch import bench
+    from pointfoot_tpu_torch.mpc import ilqr
+
+    ctrl, phys, _, _ = bench.make_mpc_ilqr(256, torch.device("cuda"))
+    from pointfoot_tpu_torch.mpc.costs import state_to_vec
+
+    x = state_to_vec(phys)
+    u = torch.zeros(256, 6, device="cuda")
+    jac = ilqr.dynamics_jacobian(ctrl.dyn_plain, x[:4], u[:4])
+    assert jac.shape == (4, 24, 30) and bool(torch.isfinite(jac).all())
+    with pytest.raises(RuntimeError, match="forward-mode tangent"):
+        ilqr.dynamics_jacobian(ctrl.dyn, x, u)

@@ -69,6 +69,27 @@ def test_guard_passes_without_a_gradient_to_build(mode):
         refuse_grad("k", "k_plain", x.detach())
 
 
+def test_guard_raises_for_a_forward_tangent():
+    """A dual tensor of torch.autograd.forward_ad would lose its tangent in
+    the kernel just as a tensor that requires grad loses its graph: the
+    guard raises, under no_grad too; the primal and plain tensors pass."""
+    import torch.autograd.forward_ad as fwAD
+
+    with fwAD.dual_level():
+        dual = fwAD.make_dual(torch.ones(3, 4), torch.ones(3, 4))
+        for ctx in (torch.enable_grad, torch.no_grad):
+            with ctx(), pytest.raises(RuntimeError) as info:
+                refuse_grad("srb_lqr_kernel", "srb_lqr_lanes_plain", None,
+                            torch.ones(2), dual * 2.0)
+            msg = str(info.value)
+            assert "srb_lqr_kernel has no backward pass" in msg
+            assert "forward-mode tangent" in msg
+            assert "`srb_lqr_lanes_plain`" in msg
+        refuse_grad("k", "k_plain", torch.ones(3), None)
+        refuse_grad("k", "k_plain", fwAD.unpack_dual(dual).primal)
+    refuse_grad("k", "k_plain", torch.ones(3))
+
+
 def _cuda_branch(fn) -> str:
     """The source of fn after its CPU branch returns the plain version."""
     src = inspect.getsource(fn)
@@ -133,6 +154,39 @@ def test_substep_wrappers_refuse_on_the_cuda_branch(as_if_on_the_card,
         call(torch.ones(1))
     with torch.no_grad(), pytest.raises(LookupError):
         call(_leaf(1))
+
+
+@pytest.mark.parametrize("name", ["rollout_step", "fk_rows", "step_rows",
+                                  "fk_xy_rows"])
+def test_substep_wrappers_refuse_a_tangent_on_the_cuda_branch(
+        as_if_on_the_card, name):
+    """With an input carrying a forward-mode tangent the CUDA branch raises
+    before it loads a library; the CPU branch is the plain version, which
+    carries the tangent."""
+    import torch.autograd.forward_ad as fwAD
+
+    call = _substep_calls(sp.model_consts(get_model("pointfoot")))[name]
+    with fwAD.dual_level(), torch.no_grad():
+        g = fwAD.make_dual(torch.ones(1), torch.ones(1))
+        with pytest.raises(RuntimeError, match="forward-mode tangent"):
+            call(g)
+
+
+def test_plain_branch_carries_a_tangent():
+    """On CPU tensors a wrapper is its plain version: the tangent of a
+    dual input comes out (the sphere-xyz FK, d/dz of the base height)."""
+    import torch.autograd.forward_ad as fwAD
+
+    mc = sp.model_consts(get_model("pointfoot"))
+    state = torch.zeros(sp._rows(sp.state_layout(mc.nj)), 3)
+    state[6] = 1.0  # unit quaternion w
+    tangent = torch.zeros_like(state)
+    tangent[2] = 1.0  # the base z of every env
+    with fwAD.dual_level():
+        out = sp.fk_rows(mc, fwAD.make_dual(state, tangent))
+        t = fwAD.unpack_dual(out).tangent
+    z = t.view(mc.nc, 3, -1)[:, 2]
+    assert torch.equal(z, torch.ones_like(z))
 
 
 # ------------------------------- the plain route differentiates, as JAX

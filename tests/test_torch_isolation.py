@@ -41,7 +41,7 @@ def test_every_module_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 26
+    assert int(proc.stdout.split()[-1]) >= 52
 
 
 def test_sources_do_not_mention_jax_package():
@@ -123,6 +123,45 @@ def test_mpc_slice_modules_import_without_jax():
     assert proc.stdout.split()[-1] == "ok"
 
 
+def test_gait_and_ilqr_modules_import_without_jax():
+    """The modules of the gait-MPC and iLQR slice, by name, with JAX
+    blocked; a gait tick and a one-step plan run on the CPU when asked
+    to."""
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'orbax', 'optax'):\n"
+        "    sys.modules[m] = None\n"
+        "for n in ('terrain.analytic', 'mpc.costs', 'mpc.ilqr', "
+        "'mpc.controller', 'mpc.gait', 'mpc'):\n"
+        "    importlib.import_module('pointfoot_tpu_torch.' + n)\n"
+        "import torch\n"
+        "from pointfoot_tpu_torch.mpc import make_controller, ILQRConfig\n"
+        "from pointfoot_tpu_torch.mpc.controller import MPCController\n"
+        "from pointfoot_tpu_torch.physics.model import PhysicsState\n"
+        "from pointfoot_tpu_torch.physics.model import PhysicsParams\n"
+        "from pointfoot_tpu_torch.terrain.analytic import make_terrain\n"
+        "st = make_controller('pointfoot', device='cpu')\n"
+        "p = PhysicsState.default(st.ctrl.model, st.q0, 2, 'cpu', "
+        "base_height=st.z0)\n"
+        "tau, g = st.ctrl.control(p, torch.zeros(2, 3), "
+        "st.ctrl.init(2, p))\n"
+        "assert tau.shape == (2, 6) and bool(torch.isfinite(tau).all())\n"
+        "m = st.ctrl.model\n"
+        "c = MPCController(m, PhysicsParams.nominal(m, 1, 'cpu'), "
+        "make_terrain('flat'), st.q0, cfg=ILQRConfig(horizon=1, "
+        "iterations=1))\n"
+        "u, ms, cost = c.plan(p, torch.zeros(2, 3), c.init(2))\n"
+        "assert bool(torch.isfinite(cost).all())\n"
+        "bad = [m for m in sys.modules if m == 'pointfoot_tpu' or "
+        "m.startswith('pointfoot_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
+
+
 def test_bench_record_and_unported_modes(capsys):
     import json
 
@@ -139,9 +178,28 @@ def test_bench_record_and_unported_modes(capsys):
     cond = rec["conditions"]
     assert cond["solver"] == "plain" and cond["card"] == "cpu"
     assert len(cond["reps_solves_per_sec"]) == 2
-    for mode in ("env_phases", "mpc_ilqr"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            bench.main(["--mode", mode, "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        bench.main(["--mode", "env_phases", "--device", "cpu"])
+
+
+def test_bench_mpc_ilqr_record(capsys):
+    """bench --mode mpc_ilqr on the CPU at 2 scenarios, one timed plan."""
+    import json
+
+    from pointfoot_tpu_torch import bench
+
+    rec = bench.main(["--mode", "mpc_ilqr", "--device", "cpu",
+                      "--num_envs", "2", "--iters", "1"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == rec
+    assert set(rec) == {"metric", "value", "unit", "vs_baseline",
+                        "conditions"}
+    assert rec["metric"] == "ilqr_scenario_solves_per_sec@2"
+    assert rec["unit"] == "solves/s" and rec["value"] > 0
+    assert rec["vs_baseline"] == pytest.approx(rec["value"] / (2 * 50.0),
+                                               rel=1e-2)
+    cond = rec["conditions"]
+    assert cond["card"] == "cpu" and cond["chunk"] == 2
+    assert cond["reps"] == 1 and cond["horizon"] == 25
 
 
 def _entry_points():
@@ -159,6 +217,8 @@ def _entry_points():
             "pointfoot_rough", 2, policy_eval.FLAGSHIP_PATCH),
         "play": lambda: play.main(["--num_envs", "2", "--steps", "1"]),
         "bench_mpc": lambda: bench.main(["--mode", "mpc", "--num_envs", "2"]),
+        "bench_mpc_ilqr": lambda: bench.main(["--mode", "mpc_ilqr",
+                                              "--num_envs", "2"]),
         "train": lambda: train.main(["--num_envs", "2",
                                      "--max_iterations", "1"]),
         "bench_train": lambda: bench.main(["--mode", "train",
@@ -177,7 +237,8 @@ def _entry_points():
 
 @pytest.mark.parametrize("name", ["resolve_device", "make_env",
                                   "make_env_anymal", "make_eval_env",
-                                  "play", "bench_mpc", "train",
+                                  "play", "bench_mpc", "bench_mpc_ilqr",
+                                  "train",
                                   "bench_train", "make_env_flat",
                                   "bench_env", "bench_actuator_net",
                                   "eval_policy", "export_policy"])
