@@ -10,7 +10,9 @@ scenarios (the fused SRB-LQR kernel), PPO training of pointfoot_rough at
 4096 envs (its rollouts through the fused rollout kernels), and the same
 env paths on plane terrain (pointfoot_flat, anymal_c_flat, PPO training of
 pointfoot_flat) and on table terrain (the registered pointfoot_rough and
-anymal_c_rough), and the recurrent policy's training and inference.
+anymal_c_rough), the recurrent policy's training and inference, the
+gait-MPC and iLQR paths, and sys-ID (the identifier at 4096 envs through
+the fused rollout kernel, the GANs through the simulator).
 
 1. device and build: the card's name and power limit; the PointFoot,
    ANYmal, A1, Cholesky and Riccati libraries of pointfoot_tpu_torch/csrc/
@@ -138,8 +140,27 @@ anymal_c_rough), and the recurrent policy's training and inference.
    with kernels 3 and 4 held to their plain versions on its first 6144-row
    line-search step; `[ilqr-witness]` the same scenarios at horizon 25
    through the kernel routes against the plain dynamics.step on the card,
-   beside the plain route's moves under one-ulp nudges; `[mpc-balance]`
-   the iLQR balance recipe of tests/test_mpc.py at 64 scenarios.
+   beside the plain route's moves under one-ulp nudges, and how many of
+   those scenarios end below their warm start's cost and how many lose
+   finite gains in the first iteration; `[mpc-balance]` the iLQR balance
+   recipe of tests/test_mpc.py at 64 scenarios;
+16. sys-ID on pointfoot_flat with the committed exported actor:
+   `[sysid] identifier` one IdentifierTrainer.train_step at the identifier
+   CLI's defaults (64 envs, window 400 after a warm-up of 100, LSTM 512;
+   the plain route, no launches) and at 4096 envs (kernel 1's route under
+   no gradient, 4 launches a step), each with its seconds, simulated
+   env-steps/s, num_valid, MSE and peak memory; kernel 1 bit for bit
+   against its plain version on the first step of the wide simulation's
+   rows (per-env friction, mass and CoM) at 4096, 1000, 1 and 4099 rows;
+   `[sysid] gan` and `[sysid] wgan` one step each through the simulator at
+   1 env (GAN_SMOKE's length and warm-up), against "real" windows
+   simulated at known parameters: seconds, losses and every generator's
+   gradient norm finite and nonzero; `[sysid] card vs cpu` the four
+   trainers' nets (the GAN's generator and discriminator, the WGAN's
+   generator and critic with its gradient penalty, the identifier, the
+   direct GAN's pair) forward and backward on the card and on the CPU in
+   float32 against the CPU in float64 (the CPU's float32 beyond the
+   tolerance only through a LeakyReLU input at its kink).
 
 The line before the last holds the kernels' JSON record, the one before it
 the card's name and power limit, and the last line is the JSON
@@ -168,6 +189,9 @@ from pointfoot_tpu_torch.mpc import costs as mpc_costs
 from pointfoot_tpu_torch.mpc import gait as gait_mpc
 from pointfoot_tpu_torch.mpc import ilqr, srb
 from pointfoot_tpu_torch.mpc.controller import MPCController
+from pointfoot_tpu_torch.export.onnx import load_policy_as_torch
+from pointfoot_tpu_torch.models.nets import (LSTMIdentifier, MLPCritic,
+                                             MLPDiscriminator, MLPGenerator)
 from pointfoot_tpu_torch.ops import quat
 from pointfoot_tpu_torch.ops.cuda import build
 from pointfoot_tpu_torch.ops.cuda import cholesky as ch
@@ -180,6 +204,13 @@ from pointfoot_tpu_torch.physics.contact import query_surface
 from pointfoot_tpu_torch.physics.model import PhysicsParams, PhysicsState
 from pointfoot_tpu_torch.rl.networks import map_carry
 from pointfoot_tpu_torch.rl.ppo import Transition, compute_gae
+from pointfoot_tpu_torch.sysid import (GANTrainer, IdentifierTrainer,
+                                       WGANTrainer, chunk_windows,
+                                       simulate_trajectory)
+from pointfoot_tpu_torch.sysid.direct_gan import DirectTrajectoryGAN
+from pointfoot_tpu_torch.sysid.gan import (FRIC_RANGE, PARAM_RANGE, _bce,
+                                           grads_of)
+from pointfoot_tpu_torch.sysid.wgan import gradient_penalty
 from pointfoot_tpu_torch.terrain.analytic import FLAT
 from pointfoot_tpu_torch.utils import policy_eval
 from pointfoot_tpu_torch.utils.registry import (get_cfgs, make_alg_runner,
@@ -280,6 +311,29 @@ ILQR_WITNESS_HORIZON, ILQR_WITNESS_NUDGES = 25, (1, 2)
 ILQR_WITNESS_CPU_ENVS, ILQR_WITNESS_CPU_NUDGES = 8, (1, 2, 3)
 # tests/test_mpc.py:110-175 at 64 scenarios: a gate, sized for time
 BALANCE_ENVS, BALANCE_TICKS = 64, 10
+# phase 16, sys-ID: the identifier CLI's defaults (batch 64, window 400,
+# warm-up 100, hidden 512) and the same step at full width, on kernel 1's
+# route; every rollout drives the committed exported flat actor, the
+# command 0.5 m/s.  The GAN CLI's defaults are 1 env, 400 + 100 steps and
+# windows of 400, a host-bound step of ~4-5 minutes through the simulator
+# and back (sysid_gans(policy, *GAN_DEFAULTS), PERF.md section 6), so the
+# run steps the GAN and the WGAN at GAN_SMOKE's (length, warm-up), the
+# window as long as the rollout.  The "real" windows are simulated at
+# REAL_PARAMS (friction^6, mass, com^3)
+SYSID_BATCH, SYSID_WINDOW, SYSID_WARMUP, SYSID_HIDDEN = 64, 400, 100, 512
+GAN_DEFAULTS, GAN_SMOKE = (400, 100), (50, 12)
+SYSID_SEED, SYSID_CMD = 11, (0.5, 0.0, 0.0)
+REAL_PARAMS = (0.02, 0.12, 0.05, 0.18, 0.08, 0.15, 0.8, 0.01, -0.01, 0.015)
+FLAT_EXPORTED = "logs/pointfoot_flat/tpu_run7/exported/policy.pt"
+# [sysid] card vs cpu: outputs and gradients of the four trainers' nets in
+# float32 on the card, and on the CPU, against float64 on the CPU, as a
+# share of each tensor's largest entry (float32 roundoff through up to 50
+# LSTM steps).  The CPU's float32 may be off by more only where one of the
+# net's LeakyReLU inputs lies within roundoff of the kink, so that its sign
+# differs from float64's and the slope there (1 or 0.2) with it: on the
+# H100's host the WGAN generator's gradients were 8% off through one input
+# of 7.3e-8 that float32 rounded to -3.0e-8 (PERF.md section 6)
+SYSID_NET_TOL = 1e-4
 # tests/test_torch_ppo.py: losses, KL and gradients (rtol, and atol scaled
 # by the tensor's largest entry for gradients)
 PPO_RTOL, PPO_ATOL = 1e-5, 1e-6
@@ -411,10 +465,11 @@ def check_same_bits(what: str, fn):
     log(f"[kernels] {what}: two launches give identical bits")
 
 
-def slice_batch(obj, n: int):
-    """The first n envs of a PhysicsState or PhysicsParams."""
+def take_rows(obj, idx):
+    """Rows `idx` (an index tensor or a slice) of a PhysicsState or
+    PhysicsParams, envs leading."""
     cls = type(obj)
-    return cls(**{f: getattr(obj, f)[:n] for f in cls.__dataclass_fields__})
+    return cls(**{f: getattr(obj, f)[idx] for f in cls.__dataclass_fields__})
 
 
 def check_finite(state, obs, num_envs, num_obs, what):
@@ -876,11 +931,11 @@ def anymal_kernels(env, mc, pf_env, pf_state):
 
     # the Cholesky kernel on the velocity systems of 2048 envs of each robot
     n = CHOL_ENVS
-    A_t, b_t = velocity_system(env, slice_batch(phys, n),
-                               slice_batch(params, n), tau[:n])
+    A_t, b_t = velocity_system(env, take_rows(phys, slice(n)),
+                               take_rows(params, slice(n)), tau[:n])
     pf_A, pf_b = velocity_system(
-        pf_env, slice_batch(pf_state.physics, n),
-        slice_batch(pf_state.params, n), pf_state.torques[:n])
+        pf_env, take_rows(pf_state.physics, slice(n)),
+        take_rows(pf_state.params, slice(n)), pf_state.torques[:n])
     chol_err = 0.0
     for At, bt, what in ((A_t, b_t, "ANYmal n=18"),
                          (pf_A, pf_b, "PointFoot n=12")):
@@ -1992,15 +2047,12 @@ def ilqr_layers(ctrl, phys, cmd, ms):
         f"{C} scenarios ({(ctrl.nx + ctrl.nj) * C * T} replicated rows)")
 
 
-def ilqr_check_solve(dev: torch.device, num: int, horizon: int,
-                     nudge: int = 0, plain: bool = False,
-                     capture: dict | None = None):
-    """MPCController.solve of `num` perturbed PointFoot scenarios on `dev`
-    (bench.make_mpc_ilqr's controller at `horizon`) from a seeded state,
-    warm start and commands.  A `nudge` seed first moves the velocities by
-    about one float32 ulp; `plain` steps the rollouts and the line search
-    with dyn_plain instead of the kernel routes of dyn; `capture` receives
-    the controller and the (x, u) rows of the first line-search step."""
+def ilqr_check_scenarios(dev: torch.device, num: int, horizon: int,
+                         nudge: int = 0):
+    """bench.make_mpc_ilqr's controller at `horizon` on `dev`, and `num`
+    perturbed PointFoot scenarios from a seeded state, warm start and
+    commands: (ctrl, phys, us_warm, cmd).  A `nudge` seed moves the
+    velocities by about one float32 ulp."""
     ctrl, phys, _, _ = bench.make_mpc_ilqr(num, dev)
     ctrl.cfg = replace(ctrl.cfg, horizon=horizon)
     g = torch.Generator().manual_seed(ILQR_CHECK_SEED)
@@ -2021,6 +2073,17 @@ def ilqr_check_solve(dev: torch.device, num: int, horizon: int,
             base_lin_vel=phys.base_lin_vel * (1 + 1.2e-7 * randn(num, 3,
                                                                  gen=gn)),
             qvel=phys.qvel * (1 + 1.2e-7 * randn(num, 6, gen=gn)))
+    return ctrl, phys, us_warm, cmd
+
+
+def ilqr_check_solve(dev: torch.device, num: int, horizon: int,
+                     nudge: int = 0, plain: bool = False,
+                     capture: dict | None = None):
+    """MPCController.solve of ilqr_check_scenarios(dev, num, horizon,
+    nudge); `plain` steps the rollouts and the line search with dyn_plain
+    instead of the kernel routes of dyn; `capture` receives the controller
+    and the (x, u) rows of the first line-search step."""
+    ctrl, phys, us_warm, cmd = ilqr_check_scenarios(dev, num, horizon, nudge)
     if plain:
         ctrl.dyn = ctrl.dyn_plain
     if capture is not None:
@@ -2034,6 +2097,20 @@ def ilqr_check_solve(dev: torch.device, num: int, horizon: int,
         ctrl.dyn = dyn_capture
     sol = ctrl.solve(phys, cmd, us_warm)
     return sol.us.cpu(), sol.cost.cpu(), sol.improved.cpu(), ctrl.cfg
+
+
+def ilqr_first_iteration(dev: torch.device, num: int, horizon: int):
+    """(warm-start cost, finite gains) of every scenario of
+    ilqr_check_scenarios: the cost of the rollout of the warm start, and
+    whether the first iteration's Riccati sweep gave finite gains."""
+    ctrl, phys, us, cmd = ilqr_check_scenarios(dev, num, horizon)
+    cost_fn = ctrl.cost_fn(cmd)
+    xs = ilqr._rollout(ctrl.dyn, mpc_costs.state_to_vec(phys), us)
+    warm = ilqr._total_cost(cost_fn, xs, us, horizon)
+    Ks, _, _ = ilqr.backward_pass(
+        *ilqr._linearize(ctrl.dyn_plain, cost_fn, xs, us, horizon),
+        torch.full_like(warm, ctrl.cfg.reg_init))
+    return warm.cpu(), torch.isfinite(Ks).flatten(1).all(1).cpu()
 
 
 def ilqr_check():
@@ -2135,6 +2212,17 @@ def ilqr_witness():
     expect_counts(launches, **add_counts(
         step_batched_launches(ILQR_CHECK_ENVS, T),
         *[step_batched_launches(A * ILQR_CHECK_ENVS, T)] * cfg.iterations))
+    warm, finite = ilqr_first_iteration(dev, ILQR_CHECK_ENVS,
+                                        ILQR_WITNESS_HORIZON)
+    log(f"[ilqr-witness] horizon {T}, {ILQR_CHECK_ENVS} perturbed "
+        f"scenarios: improved in the last iteration "
+        f"{int(kern[2].sum())}, final cost below the warm start's "
+        f"{int((kern[1] < warm - 1e-9).sum())}; the first iteration's "
+        f"gains not finite in {int((~finite).sum())} (a Riccati sweep "
+        f"that lost definiteness: the line search's costs are NaN and the "
+        f"scenario keeps its warm start, as in JAX, "
+        f"tests/test_torch_ilqr.py::"
+        f"test_horizon25_unimproved_scenarios_match_jax)")
     plain = solve(plain=True)
     got = moved(kern, plain)
     nudged = [moved(solve(plain=True, nudge=k), plain)
@@ -2268,6 +2356,269 @@ def mpc_balance():
                              f"tests/test_mpc.py:110-175: {rec}")
 
 
+# ------------------------------------------------------ 16. sys-ID
+
+def sysid_identifier(num_envs: int, policy) -> dict:
+    """[sysid] identifier: one IdentifierTrainer.train_step of
+    pointfoot_flat at `num_envs` envs (the CLI's window, warm-up, hidden
+    width and command), its seconds, simulated env-steps/s, num_valid, MSE,
+    peak memory and launch counts."""
+    env = make_env("pointfoot_flat", num_envs=num_envs)
+    trainer = IdentifierTrainer(env, policy, window=SYSID_WINDOW,
+                                warmup=SYSID_WARMUP, hidden=SYSID_HIDDEN)
+    gen = torch.Generator().manual_seed(SYSID_SEED)
+    trainer.init(gen)
+    state = env.init_state(SYSID_SEED)
+    cmd = torch.tensor(SYSID_CMD, device=env.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    m = trainer.train_step(state, cmd, generator=gen)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = SYSID_WARMUP + SYSID_WINDOW
+    mse, valid = float(m["mse"]), int(m["num_valid"])
+    log(f"[sysid] identifier, pointfoot_flat, {num_envs} envs, window "
+        f"{SYSID_WINDOW} after a warm-up of {SYSID_WARMUP}, LSTM "
+        f"{SYSID_HIDDEN}: one train_step {dt:.3f} s, "
+        f"{num_envs * steps / dt:,.1f} simulated env-steps/s, num_valid "
+        f"{valid} of {num_envs}, mse {mse:.6g}, peak memory {peak:.2f} GiB; "
+        f"launches {launches}")
+    if not (np.isfinite(mse) and 0 < valid <= num_envs):
+        raise AssertionError(f"[sysid] identifier at {num_envs} envs: mse "
+                             f"{mse}, num_valid {valid}")
+    return dict(env=env, trainer=trainer, launches=launches, seconds=dt)
+
+
+def sysid_kernel_rows(env, trainer, policy) -> float:
+    """[sysid] kernel 1 on the identifier's rows: the fused rollout of the
+    first step of a wide identifier simulation (distinct per-env friction,
+    mass and CoM pinned) against its plain version, bit for bit, at the
+    full width and at RAGGED rows.  Returns the max |err|."""
+    target = trainer.sample_params(torch.Generator().manual_seed(SYSID_SEED))
+    state = env.init_state(SYSID_SEED)
+    state = env.update_frictions(state, target[:, :6])
+    state = env.update_added_mass_and_base_com(state, target[:, 6],
+                                               target[:, 7:10])
+    state = env.update_cmd(state, torch.tensor(SYSID_CMD,
+                                               device=env.device))
+    p = state.params
+    if not (torch.unique(p.joint_friction, dim=0).shape[0] == NUM_ENVS
+            and torch.unique(p.added_mass).shape[0] == NUM_ENVS
+            and torch.unique(p.com_offset, dim=0).shape[0] == NUM_ENVS):
+        raise AssertionError("[sysid] the rows' parameters are not distinct")
+    err = 0.0
+    with torch.no_grad():
+        actions = policy(torch.zeros(NUM_ENVS, env.num_obs,
+                                     device=env.device))
+        for num in (NUM_ENVS,) + RAGGED:
+            idx = torch.arange(num, device=env.device) % NUM_ENVS
+            part = state.replace(
+                params=take_rows(state.params, idx),
+                physics=take_rows(state.physics, idx),
+                last_qvel=state.last_qvel[idx],
+                push_force=state.push_force[idx])
+            errs = check_env_rollout(env, part, actions[idx],
+                                     f"the identifier's rows, B={num}")
+            err = max([err] + list(errs.values()))
+    log(f"[sysid] kernel 1 on the identifier's rows (per-env friction, mass "
+        f"and CoM): bit for bit against its plain version at "
+        f"{NUM_ENVS}, {', '.join(map(str, RAGGED))} rows; max |err| {err}")
+    return err
+
+
+def sysid_real_windows(policy, length: int, warmup: int, chunk: int,
+                       overlap: int):
+    """Windows of a "real" trajectory: env 0 of a pointfoot_flat rollout at
+    REAL_PARAMS (4096 envs, no gradient: kernel 1's route)."""
+    env = make_env("pointfoot_flat", num_envs=NUM_ENVS)
+    real = torch.tensor(REAL_PARAMS, device=env.device)
+    with torch.no_grad():
+        traj, _ = simulate_trajectory(
+            env, env.init_state(SYSID_SEED + 1), policy, real[:6], real[6],
+            real[7:10], torch.tensor(SYSID_CMD, device=env.device),
+            length=length, warmup=warmup)
+    log(f"[sysid] real windows: env 0 of a {NUM_ENVS}-env rollout at "
+        f"friction {list(REAL_PARAMS[:6])}, added mass {REAL_PARAMS[6]}, "
+        f"CoM {list(REAL_PARAMS[7:])}, seed {SYSID_SEED + 1}")
+    return chunk_windows(traj.obs[:, :1], chunk=chunk, overlap=overlap)
+
+
+def sysid_gans(policy, length: int, warmup: int) -> dict:
+    """[sysid] gan and wgan: one train_step each through the simulator on
+    the plain route (1 env, `warmup` + `length` steps, windows of
+    `length`): seconds, losses and each generator's largest gradient norm,
+    all finite and nonzero."""
+    env = make_env("pointfoot_flat", num_envs=1)
+    state = env.init_state(SYSID_SEED)
+    cmd = torch.tensor(SYSID_CMD, device=env.device)
+    out = {}
+    for name, cls in (("gan", GANTrainer), ("wgan", WGANTrainer)):
+        trainer = cls(env, policy, sim_length=length, warmup=warmup,
+                      chunk=length)
+        if "real" not in out:
+            out["real"] = sysid_real_windows(policy, length, warmup,
+                                             trainer.chunk, trainer.overlap)
+        gen = torch.Generator().manual_seed(SYSID_SEED)
+        trainer.init(gen)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        m = trainer.train_step(state, out["real"], cmd, generator=gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_counts()
+        expect_counts(launches)  # one env: the plain route
+        gens = trainer.generators if name == "gan" else (trainer.gen,)
+        norms = [max(float(torch.linalg.vector_norm(p.grad))
+                     for p in net.parameters()) for net in gens]
+        losses = {k: float(v) for k, v in m.items()}
+        log(f"[sysid] {name}: one train_step through the simulator, 1 env, "
+            f"{warmup} + {length} steps, chunks of {trainer.chunk}: "
+            f"{dt:.3f} s ({(warmup + length) / dt:.2f} env-steps/s "
+            f"with the backward pass), losses {json.dumps(losses)}, largest "
+            f"gradient norm of each generator {norms}")
+        if not (all(np.isfinite(v) for v in losses.values())
+                and all(np.isfinite(n) and n > 0 for n in norms)):
+            raise AssertionError(f"[sysid] {name}: losses {losses}, "
+                                 f"generator gradient norms {norms}")
+        out[name] = dt
+    return out
+
+
+@contextlib.contextmanager
+def leaky_inputs(rec: list):
+    """Records every input of torch.nn.functional.leaky_relu, as float64
+    on the CPU, while the block runs."""
+    F = torch.nn.functional
+    orig = F.leaky_relu
+
+    def recording(x, *args, **kwargs):
+        rec.append(x.detach().cpu().double())
+        return orig(x, *args, **kwargs)
+
+    F.leaky_relu = recording
+    try:
+        yield rec
+    finally:
+        F.leaky_relu = orig
+
+
+def sysid_card_vs_cpu(real: torch.Tensor):
+    """[sysid] card vs cpu: the four trainers' nets, forward and backward,
+    on the same windows on the card and on the CPU in float32, against the
+    CPU in float64: outputs and gradients within SYSID_NET_TOL of each
+    tensor's largest entry; the critic's loss holds the gradient penalty, a
+    double backward through its LSTM.  The CPU's float32 may go beyond the
+    tolerance only where a LeakyReLU input changes sign against float64
+    (a kink: the slope differs, and the gradient with it); the line prints
+    how many did."""
+    cpu, dev = torch.device("cpu"), bench.resolve_device(None)
+    g = torch.Generator().manual_seed(SYSID_SEED)
+    win = (real.cpu() + 0.05 * torch.randn(8, *real.shape[1:], generator=g))
+    fake = win.flip(0) * 0.9
+    eps = torch.rand(8, 1, 1, generator=g)
+    z = torch.randn(8, 64, generator=g)
+    direct = DirectTrajectoryGAN(window=win.shape[1], z_dim=64, device=cpu)
+    nets = {
+        "gan generator (friction)": (
+            MLPGenerator(6, 6, FRIC_RANGE, generator=g),
+            lambda n, x: n(z[:, :6].to(x))),
+        "gan discriminator": (
+            MLPDiscriminator(27, out_dim=1, generator=g),
+            lambda n, x: _bce(n(x), torch.ones(len(x), 1).to(x))),
+        "wgan generator": (
+            MLPGenerator(10, 10, PARAM_RANGE, generator=g),
+            lambda n, x: n(z[:, :10].to(x))),
+        "wgan critic + gradient penalty": (
+            MLPCritic(27, generator=g),
+            lambda n, x: n(x).mean() + 10.0 * gradient_penalty(
+                n, x, fake.to(x), eps.to(x))),
+        f"identifier (LSTM {SYSID_HIDDEN})": (
+            LSTMIdentifier(27, SYSID_HIDDEN, 10, generator=g),
+            lambda n, x: n(x)),
+        "direct-GAN generator": (direct.gen, lambda n, x: n(z.to(x))),
+        "direct-GAN discriminator": (direct.disc, lambda n, x: n(x)),
+    }
+
+    def run(net, fn, d, dtype):
+        """(output and gradients as float64 on the CPU, LeakyReLU inputs)"""
+        m = copy.deepcopy(net).to(d, dtype)
+        with leaky_inputs([]) as kinks:
+            y = fn(m, win.to(d, dtype))
+        grads = grads_of(y.sum(), list(m.parameters()))
+        return [t.detach().cpu().double() for t in [y] + list(grads)], kinks
+
+    def rel(got, ref):
+        return max(float((a - b).abs().max() / b.abs().max().clamp_min(
+            1e-30)) for a, b in zip(got, ref))
+
+    def flips(got, ref):
+        """(count of inputs of another sign, the float64 and float32 values
+        of the one of them furthest from the kink)"""
+        n, far = 0, (0.0, 0.0)
+        for a, b in zip(got, ref):
+            other = (a > 0) != (b > 0)
+            n += int(other.sum())
+            if other.any():
+                i = torch.argmax(torch.where(other, b.abs(), -1.0))
+                if abs(float(b.flatten()[i])) >= abs(far[0]):
+                    far = (float(b.flatten()[i]), float(a.flatten()[i]))
+        return n, far
+
+    worst = 0.0
+    for what, (net, fn) in nets.items():
+        ref, ref_in = run(net, fn, cpu, torch.float64)
+        card, card_in = run(net, fn, dev, torch.float32)
+        cpu32, cpu32_in = run(net, fn, cpu, torch.float32)
+        err, err32 = rel(card, ref), rel(cpu32, ref)
+        (kink, far), (kink32, far32) = (flips(card_in, ref_in),
+                                        flips(cpu32_in, ref_in))
+        worst = max(worst, err)
+
+        def signs(n, far):
+            return (f"{n} LeakyReLU inputs of another sign" + (
+                f" (float64 {far[0]:.3g}, float32 {far[1]:.3g})" if n
+                else ""))
+
+        log(f"[sysid] card vs cpu, {what}: output and gradients on the card "
+            f"within {err:.3g} of the CPU's float64, of each tensor's "
+            f"largest entry, {signs(kink, far)}; the CPU's float32 within "
+            f"{err32:.3g}, {signs(kink32, far32)}")
+        if not err <= SYSID_NET_TOL:
+            raise AssertionError(f"[sysid] card vs cpu, {what}: {err} beyond "
+                                 f"{SYSID_NET_TOL}")
+        if not (err32 <= SYSID_NET_TOL or kink32 > 0):
+            raise AssertionError(f"[sysid] card vs cpu, {what}: the CPU's "
+                                 f"float32 {err32} beyond {SYSID_NET_TOL} "
+                                 f"with no LeakyReLU input at its kink")
+    return worst
+
+
+def sysid_phase() -> dict:
+    """Phase 16: the identifier at the CLI's batch and at full width,
+    kernel 1 on the identifier's rows, one GAN and one WGAN step through
+    the simulator, and the nets on the card against the CPU.  Returns
+    kernel 1's launches in the full-width identifier step and its max
+    |err| on the identifier's rows."""
+    policy = load_policy_as_torch(FLAT_EXPORTED)
+    small = sysid_identifier(SYSID_BATCH, policy)
+    expect_counts(small["launches"])  # 64 rows: the plain route
+    wide = sysid_identifier(NUM_ENVS, policy)
+    decimation = wide["env"].cfg.control.decimation
+    expect_counts(wide["launches"], rollout_substep=decimation * (
+        SYSID_WARMUP + SYSID_WINDOW))
+    err = sysid_kernel_rows(wide["env"], wide["trainer"], policy)
+    launches = wide["launches"]["rollout_substep"]
+    del small, wide
+    gans = sysid_gans(policy, *GAN_SMOKE)
+    sysid_card_vs_cpu(gans["real"])
+    return dict(launches=launches, err=err)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2325,6 +2676,8 @@ def main() -> int:
     log(f"[t] gait-MPC done at {time.perf_counter() - t_start:.1f} s")
     ilqr_run = ilqr_phase()
     log(f"[t] iLQR done at {time.perf_counter() - t_start:.1f} s")
+    sysid = sysid_phase()
+    log(f"[t] sys-ID done at {time.perf_counter() - t_start:.1f} s")
     phase15 = {k: dict(gait_launches=gait["launches"].get(k, 0),
                        ilqr_launches=ilqr_run["launches"][k])
                for k in ("substep", "fk_contact_xy", "chol_solve", "srb_lqr")}
@@ -2336,7 +2689,9 @@ def main() -> int:
         dict(kernel_record("rollout_substep_kernel", SUBSTEP_SRC,
                            "pointfoot_tpu/ops/pallas/substep.py:273",
                            pf_launches["rollout_substep"], **roll), **flat,
-             rnn_train_launches=rnn_launches["rollout_substep"]),
+             rnn_train_launches=rnn_launches["rollout_substep"],
+             sysid_launches=sysid["launches"],
+             sysid_max_abs_err=sysid["err"]),
         dict(kernel_record("fk_from_state_kernel", SUBSTEP_SRC,
                            "pointfoot_tpu/ops/pallas/substep.py:328",
                            pf_launches["fk_from_state"], **fk),

@@ -11,10 +11,11 @@
   `reset_memory()` to zero it, and the actor head.
 - `load_onnx_policy`: a numpy policy from a `.onnx` file (through the
   reader) or a TorchScript `.pt`.
+- `load_policy_as_torch`: an exported TorchScript actor rebuilt as a
+  function of tensors, for the sys-ID rollouts (JAX's load_policy_as_jax).
 
 Each exporter takes the port's ActorCritic / ActorCriticRecurrent or its
-state dict, on any device: the file does not depend on the device.  Not
-ported: `load_policy_as_jax`, which waits for `sysid/`, its only user.
+state dict, on any device: the file does not depend on the device.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ from typing import Callable, List, Mapping, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
+from pointfoot_tpu_torch.device import resolve_device
 from pointfoot_tpu_torch.export.onnx_writer import (read_mlp_onnx,
                                                    write_mlp_onnx)
 
@@ -160,5 +163,33 @@ def load_onnx_policy(path: str) -> Callable[[np.ndarray], np.ndarray]:
     def policy(obs_np: np.ndarray) -> np.ndarray:
         with torch.no_grad():
             return mod(torch.from_numpy(obs_np.astype(np.float32))).numpy()
+
+    return policy
+
+
+def load_policy_as_torch(path: str, activation: str = "elu", device=None
+                         ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """An exported TorchScript actor as a plain function of tensors on
+    `device` (default: the GPU, see device.resolve_device), so autograd
+    runs through it inside the sys-ID simulation.  The MLP is rebuilt from
+    the module's `named_parameters()` ('<i>.weight' / '<i>.bias' in order),
+    with `activation` between the layers."""
+    dev = resolve_device(device)
+    mod = torch.jit.load(path, map_location="cpu")
+    layers = []
+    for name, p in mod.named_parameters():
+        if name.endswith("weight"):
+            layers.append([p.detach().to(dev), None])
+        else:
+            layers[-1][1] = p.detach().to(dev)
+    act = {"elu": F.elu, "relu": F.relu, "tanh": torch.tanh}[activation]
+
+    def policy(obs: torch.Tensor) -> torch.Tensor:
+        x = obs
+        for i, (W, b) in enumerate(layers):
+            x = x @ W.T + b
+            if i < len(layers) - 1:
+                x = act(x)
+        return x
 
     return policy

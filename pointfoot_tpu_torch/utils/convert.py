@@ -15,6 +15,12 @@
 - `gait_state_from_numpy` / `mpc_state_from_numpy`: a JAX GaitState
   (mpc/gait.py) or MPCState (mpc/controller.py) exported field by field ->
   the port's, so a controller can go on from a state the JAX one reached.
+- `net_state_dict`: the flax parameters of a sys-ID net (models/nets.py,
+  sysid/direct_gan._SeqGenerator) -> the state dict of the port's net of
+  the same configuration, through flax's auto-names (`Dense_k`,
+  `_ScanLSTM_k`, `_EncoderBlock_k` with `LayerNorm_k` and
+  `MultiHeadDotProductAttention_0`); attention kernels (features, heads,
+  head_dim) and (heads, head_dim, features) go over by reshape.
 - `train_state_from_numpy`: a JAX TrainState (params, optax's Adam moments
   and count, learning rate, update count) of either network -> the state
   rl/ppo.PPO or RecurrentPPO loads, so a JAX checkpoint can be resumed by
@@ -32,11 +38,15 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from pointfoot_tpu_torch.envs.legged_env import EnvState
 from pointfoot_tpu_torch.mpc.controller import MPCState
+from pointfoot_tpu_torch.models.nets import (AttentionModel,
+                                             MultiHeadAttention)
 from pointfoot_tpu_torch.mpc.gait import GaitState
 from pointfoot_tpu_torch.physics.model import PhysicsParams, PhysicsState
+from pointfoot_tpu_torch.rl.networks import LSTMCell
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -92,6 +102,76 @@ def actor_critic_state_dict(flax_params: Mapping) -> Dict[str, torch.Tensor]:
                                   ("weight_h", "h", "kernel"),
                                   ("bias_h", "h", "bias")):
             out[f"{net}.{name}"] = _f32(np.concatenate(
+                [p[f"{group}{g}/{leaf}"] for g in "ifgo"], axis=-1))
+    return out
+
+
+def _net_scopes(net: nn.Module) -> Dict[str, str]:
+    """flax scope under "params" -> the port's submodule path."""
+    scopes = {}
+    if hasattr(net, "blocks"):  # the two transformers
+        dense, lstms = ["embed", "out"], []
+        for k in range(len(net.blocks)):
+            for flax_name, name in (("LayerNorm_0", "ln1"),
+                                    ("LayerNorm_1", "ln2"),
+                                    ("Dense_0", "fc1"), ("Dense_1", "fc2"),
+                                    ("MultiHeadDotProductAttention_0",
+                                     "attn")):
+                scopes[f"_EncoderBlock_{k}/{flax_name}"] = f"blocks.{k}.{name}"
+    elif isinstance(net, AttentionModel):
+        # flax names Dense(1) of `Dense(1)(tanh(Dense(hidden)(ys)))` first
+        dense, lstms = ["score", "attn", "hidden", "out"], ["fwd", "bwd"]
+    else:
+        dense = [f"hidden.{i}" for i in range(len(net.hidden))] + ["out"]
+        lstms = ["lstm"] if hasattr(net, "lstm") else []
+    scopes.update({f"Dense_{i}": d for i, d in enumerate(dense)})
+    scopes.update({f"_ScanLSTM_{k}/OptimizedLSTMCell_0": f"{name}.cell"
+                   for k, name in enumerate(lstms)})
+    return scopes
+
+
+def net_state_dict(net: nn.Module, flax_params: Mapping
+                   ) -> Dict[str, torch.Tensor]:
+    """The state dict of `net` (a models/nets.py net, or direct_gan's
+    generator) from the flax parameters of its JAX counterpart: nested
+    dicts, optionally under "params", or flat "a/b/c" keys."""
+    flat = flatten(flax_params)
+    scopes = _net_scopes(net)
+    out, cells = {}, {}
+    for key, arr in flat.items():
+        key = key[len("params/"):] if key.startswith("params/") else key
+        scope = max((sc for sc in scopes if key.startswith(sc + "/")),
+                    key=len, default=None)
+        if scope is None:
+            raise KeyError(f"unexpected flax parameter {key}")
+        path, rest = scopes[scope], key[len(scope) + 1:]
+        mod = net.get_submodule(path)
+        arr = np.asarray(arr)
+        if isinstance(mod, LSTMCell):
+            cells.setdefault(path, {})[rest] = arr
+        elif isinstance(mod, nn.Linear):
+            out[f"{path}.{'weight' if rest == 'kernel' else 'bias'}"] = \
+                _f32(arr.T if rest == "kernel" else arr)
+        elif isinstance(mod, nn.LayerNorm):
+            out[f"{path}.{'weight' if rest == 'scale' else 'bias'}"] = \
+                _f32(arr)
+        elif isinstance(mod, MultiHeadAttention):
+            proj, leaf = rest.split("/")
+            if leaf == "bias":
+                out[f"{path}.{proj}.bias"] = _f32(arr.reshape(-1))
+            elif proj == "out":  # (heads, head_dim, features)
+                out[f"{path}.out.weight"] = _f32(
+                    arr.reshape(-1, arr.shape[-1]).T)
+            else:  # (features, heads, head_dim)
+                out[f"{path}.{proj}.weight"] = _f32(
+                    arr.reshape(arr.shape[0], -1).T)
+        else:
+            raise KeyError(f"no conversion for {key} onto {path}")
+    for path, p in cells.items():
+        for name, group, leaf in (("weight_i", "i", "kernel"),
+                                  ("weight_h", "h", "kernel"),
+                                  ("bias_h", "h", "bias")):
+            out[f"{path}.{name}"] = _f32(np.concatenate(
                 [p[f"{group}{g}/{leaf}"] for g in "ifgo"], axis=-1))
     return out
 

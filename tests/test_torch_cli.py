@@ -2,15 +2,22 @@
 (pointfoot_tpu_torch/eval_policy.py, the counterpart of
 scripts/eval_policy.py) with an actor npz, the task's committed actor and a
 `model_<it>.pt` of the train CLI; `bench --mode env` and `--mode
-actuator_net` (the procedural headline and the table leg); and `train` on
+actuator_net` (the procedural headline and the table leg); `train` on
 pointfoot_flat and on pointfoot_rough with their registered configs, and
-with the flagship continuation's promotion knob."""
+with the flagship continuation's promotion knob; and the sys-ID CLIs (gan,
+identifier, inference: scripts/gan.py, identifier.py, inference.py) at
+tiny sizes."""
 
+import functools
 import json
+import os
 
+import numpy as np
 import pytest
+import torch
 
-from pointfoot_tpu_torch import bench, eval_policy, train
+from pointfoot_tpu_torch import (bench, eval_policy, gan, identifier,
+                                 inference, train)
 from pointfoot_tpu_torch.utils import policy_eval
 
 # a 1-iteration run of 2-step rollouts and one-layer networks
@@ -99,3 +106,69 @@ def test_bench_env_modes(capsys, mode, task):
     assert cond["table_steps_per_sec"] > 0
     assert 1 <= cond["settle_iters"] <= bench.SETTLE_MAX
     assert cond["steps_per_iter"] == 2
+
+
+# ------------------------------------------------------ the sys-ID CLIs
+
+EXPORTED = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "logs", "pointfoot_flat", "tpu_run7", "exported",
+    "policy.pt")
+
+
+def _short_warmup(monkeypatch, module, name, steps):
+    """`module`'s trainer class `name` with a warm-up of `steps` env steps
+    in place of its default of 100, so a CLI test stays short."""
+    monkeypatch.setattr(module, name, functools.partial(
+        getattr(module, name), warmup=steps))
+
+
+@pytest.mark.parametrize("wgan", [False, True], ids=["gan", "wgan"])
+def test_gan_cli(tmp_path, capsys, monkeypatch, wgan):
+    """Two command buckets of 30 and 10 rows: with --min_bucket 20 one
+    update an epoch, through a 1 + 8-step rollout of the exported actor
+    (the trainer's warm-up cut to 1 step); one JSON line of finite losses
+    an update."""
+    _short_warmup(monkeypatch, gan, "WGANTrainer" if wgan else "GANTrainer",
+                  1)
+    rng = np.random.default_rng(0)
+    entries = [{"obs": np.r_[rng.normal(size=24), cmd].astype(np.float32)}
+               for cmd in [(0.5, 0.0, 0.0)] * 30 + [(0.0, 0.0, 0.0)] * 10]
+    real = tmp_path / "rr1.npy"
+    np.save(real, np.asarray(entries, dtype=object), allow_pickle=True)
+    path = gan.main(["--real", str(real), "--policy", EXPORTED, "--epochs",
+                     "2", "--sim_length", "8", "--min_bucket", "20", "--log_dir", str(tmp_path / "log"),
+                     "--device", "cpu"] + (["--wgan"] if wgan else []))
+    assert "2 command buckets; sizes [30, 10]" in capsys.readouterr().out
+    lines = [json.loads(s) for s in open(path)]
+    loss = "critic_loss" if wgan else "disc_loss"
+    assert [ln["epoch"] for ln in lines] == [0, 1]
+    assert all(set(ln) == {"gen_loss", loss, "epoch"} for ln in lines)
+    assert all(np.isfinite(ln["gen_loss"]) and np.isfinite(ln[loss])
+               for ln in lines)
+    with pytest.raises(SystemExit, match="min_bucket"):
+        gan.main(["--real", str(real), "--min_bucket", "30", "--device",
+                  "cpu"])
+
+
+def test_identifier_and_inference_cli(tmp_path, capsys, monkeypatch):
+    """Two identifier iterations at 2 envs (windows of 8 steps, the
+    trainer's warm-up cut to 2 steps) save identifier_0.pt and
+    identifier_1.pt with the default LSTM of 512; the inference CLI reads
+    them through a glob and prints one finite MSE each."""
+    for module in (identifier, inference):
+        _short_warmup(monkeypatch, module, "IdentifierTrainer", 2)
+    small = ["--device", "cpu", "--window", "8"]
+    saved = identifier.main(small + ["--iters", "2", "--batch", "2",
+                                     "--save_every", "1", "--log_dir",
+                                     str(tmp_path)])
+    assert [os.path.basename(p) for p in saved] == ["identifier_0.pt",
+                                                    "identifier_1.pt"]
+    sd = torch.load(saved[-1])
+    assert sd["lstm.cell.weight_h"].shape == (512, 2048)
+    assert "it 0: mse" in capsys.readouterr().out
+    out = inference.main(small + ["--ckpt", str(tmp_path / "*.pt"),
+                                  "--batch", "2"])
+    assert sorted(out) == sorted(saved)
+    assert all(np.isfinite(v) for v in out.values())
+    printed = capsys.readouterr().out.splitlines()
+    assert printed[0].startswith("identifier_0.pt: mse ")

@@ -647,3 +647,93 @@ def test_params_broadcast_expands_one_row_and_refuses_other_sizes():
     assert torch.equal(five.broadcast(5).added_mass, five.added_mass)
     with pytest.raises(RuntimeError):
         PhysicsParams.nominal(m, 3, "cpu").broadcast(5)
+
+
+@pytest.mark.slow
+def test_horizon25_unimproved_scenarios_match_jax():
+    """Why the bench's horizon-25 plan leaves most perturbed scenarios
+    unimproved: 8 perturbed scenarios built as chip_smoke.py's
+    ilqr_check_solve builds them (seed 5), 2 iterations at horizon 25 on
+    the port's plain route, against JAX's jitted parts with ilqr_solve's
+    control flow.  Where the Riccati sweep loses definiteness the gains
+    are not finite and the line search's costs are NaN, in both packages
+    on the same scenarios; the improved flags agree in every iteration, so
+    JAX improves no scenario that the port does not."""
+    from dataclasses import replace
+
+    from pointfoot_tpu_torch import bench
+    from pointfoot_tpu_torch.ops import quat
+
+    T25, num = 25, 8
+    ctrl, phys, _, _ = bench.make_mpc_ilqr(num, torch.device("cpu"))
+    cfg = replace(ctrl.cfg, horizon=T25)
+    g = torch.Generator().manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g)
+
+    phys = phys.replace(
+        base_pos=phys.base_pos + 0.02 * randn(num, 3),
+        base_quat=quat.normalize(phys.base_quat + 0.03 * randn(num, 4)),
+        base_lin_vel=0.2 * randn(num, 3), base_ang_vel=0.2 * randn(num, 3),
+        qpos=0.1 * randn(num, 6), qvel=0.3 * randn(num, 6))
+    us = 0.5 * randn(num, T25, 6)
+    cmd = 0.3 * randn(num, 3)
+
+    jctrl, _ = _controllers(dict(horizon=T25, iterations=2, reg_init=1.0))
+    jm, w = jctrl.model, jctrl.weights
+
+    def cost_of(c):
+        return jcosts.pointfoot_stage_cost(jm, w, jctrl.default_qpos, c, T25)
+
+    alphas = jnp.asarray(jctrl.cfg.alphas)
+    j_roll = jax.jit(jax.vmap(lambda x0, u, c: (
+        lambda xs: (xs, jilqr._total_cost(cost_of(c), xs, u, T25)))(
+            jilqr._rollout(jctrl.dyn, x0, u))))
+    j_lin = jax.jit(jax.vmap(lambda xs, u, c: jilqr._linearize(
+        jctrl.dyn, cost_of(c), xs, u, T25)))
+    j_back = jax.jit(jax.vmap(jilqr.backward_pass))
+    j_fwd = jax.jit(jax.vmap(lambda xs, u, Ks, ks, c: jilqr._forward_pass(
+        jctrl.dyn, cost_of(c), xs, u, Ks, ks, alphas, T25)))
+
+    def finite(K):
+        return np.isfinite(np.asarray(K)).reshape(num, -1).all(1)
+
+    js = JState(**{f: jnp.asarray(getattr(phys, f).numpy()) for f in (
+        "base_pos", "base_quat", "base_lin_vel", "base_ang_vel", "qpos",
+        "qvel", "contact_force")})
+    jxs, jcost = j_roll(jax.vmap(jcosts.state_to_vec)(js),
+                        jnp.asarray(us.numpy()), jnp.asarray(cmd.numpy()))
+    jus, jc = jnp.asarray(us.numpy()), jnp.asarray(cmd.numpy())
+    jreg = jnp.full((num,), cfg.reg_init, jnp.float32)
+
+    cost_fn = ctrl.cost_fn(cmd)
+    xs = ilqr._rollout(ctrl.dyn, costs.state_to_vec(phys), us)
+    cost = ilqr._total_cost(cost_fn, xs, us, T25)
+    reg = torch.full_like(cost, cfg.reg_init)
+    unimproved = 0
+    for it in range(cfg.iterations):
+        Ks, ks, _ = ilqr.backward_pass(*ilqr._linearize(
+            ctrl.dyn_plain, cost_fn, xs, us, T25), reg)
+        xs_n, us_n, cost_n = ilqr._forward_pass(ctrl.dyn, cost_fn, xs, us,
+                                                Ks, ks, cfg.alphas, T25)
+        imp = cost_n < cost - 1e-9
+        jK, jk, _ = j_back(*j_lin(jxs, jus, jc), jreg)
+        (jxs_n, jus_n), jcost_n = j_fwd(jxs, jus, jK, jk, jc)
+        jimp = np.asarray(jcost_n < jcost - 1e-9)
+        assert imp.tolist() == jimp.tolist(), f"iteration {it + 1}"
+        np.testing.assert_array_equal(finite(Ks), finite(jK))
+        np.testing.assert_array_equal(torch.isfinite(cost_n).numpy(),
+                                      np.isfinite(np.asarray(jcost_n)))
+        unimproved += int((~imp).sum())
+        reg = torch.where(imp, torch.clamp_min(reg * 0.5, cfg.reg_min),
+                          torch.clamp_max(reg * 10.0, cfg.reg_max))
+        xs = torch.where(imp[:, None, None], xs_n, xs)
+        us = torch.where(imp[:, None, None], us_n, us)
+        cost = torch.where(imp, cost_n, cost)
+        jreg = jnp.where(jimp, jnp.maximum(jreg * 0.5, cfg.reg_min),
+                         jnp.minimum(jreg * 10.0, cfg.reg_max))
+        jxs = jnp.where(jimp[:, None, None], jxs_n, jxs)
+        jus = jnp.where(jimp[:, None, None], jus_n, jus)
+        jcost = jnp.where(jimp, jcost_n, jcost)
+    assert unimproved > 0  # the case this test is about occurs

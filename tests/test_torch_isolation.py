@@ -41,7 +41,7 @@ def test_every_module_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 52
+    assert int(proc.stdout.split()[-1]) >= 64
 
 
 def test_sources_do_not_mention_jax_package():
@@ -162,6 +162,39 @@ def test_gait_and_ilqr_modules_import_without_jax():
     assert proc.stdout.split()[-1] == "ok"
 
 
+def test_sysid_modules_import_without_jax():
+    """The modules of the sys-ID slice, by name, with JAX blocked; the
+    exported actor loads as a torch function and an identifier step runs
+    on the CPU when asked to."""
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'orbax', 'optax'):\n"
+        "    sys.modules[m] = None\n"
+        "for n in ('models', 'models.nets', 'sysid', 'sysid.simulate', "
+        "'sysid.realdata', 'sysid.gan', 'sysid.wgan', 'sysid.identifier', "
+        "'sysid.direct_gan', 'export.onnx', 'utils.convert', 'gan', "
+        "'identifier', 'inference'):\n"
+        "    importlib.import_module('pointfoot_tpu_torch.' + n)\n"
+        "import torch\n"
+        "from pointfoot_tpu_torch.export.onnx import load_policy_as_torch\n"
+        "from pointfoot_tpu_torch.sysid import IdentifierTrainer\n"
+        "from pointfoot_tpu_torch.utils.registry import make_env\n"
+        "pol = load_policy_as_torch('logs/pointfoot_flat/tpu_run7/exported/"
+        "policy.pt', device='cpu')\n"
+        "env = make_env('pointfoot_flat', num_envs=2, device='cpu')\n"
+        "t = IdentifierTrainer(env, pol, window=3, warmup=1, hidden=8)\n"
+        "m = t.train_step(env.init_state(0), torch.zeros(3))\n"
+        "assert bool(torch.isfinite(m['mse']))\n"
+        "bad = [m for m in sys.modules if m == 'pointfoot_tpu' or "
+        "m.startswith('pointfoot_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
+
+
 def test_bench_record_and_unported_modes(capsys):
     import json
 
@@ -204,7 +237,9 @@ def test_bench_mpc_ilqr_record(capsys):
 
 def _entry_points():
     from pointfoot_tpu_torch import (bench, device, eval_policy,
-                                     export_policy, play, train)
+                                     export_policy, gan, identifier,
+                                     inference, play, train)
+    from pointfoot_tpu_torch.export.onnx import load_policy_as_torch
     from pointfoot_tpu_torch.utils import policy_eval, registry
 
     return {
@@ -232,6 +267,12 @@ def _entry_points():
                                                  "--secs", "0.1"]),
         "export_policy": lambda: export_policy.main(
             ["--load_run", policy_eval.FLAT_ACTOR, "--out", os.devnull]),
+        "gan": lambda: gan.main(["--real", os.devnull]),
+        "identifier": lambda: identifier.main(["--iters", "1"]),
+        "inference": lambda: inference.main(["--ckpt", os.devnull]),
+        "load_policy_as_torch": lambda: load_policy_as_torch(os.path.join(
+            REPO, "logs", "pointfoot_flat", "tpu_run7", "exported",
+            "policy.pt")),
     }
 
 
@@ -241,7 +282,9 @@ def _entry_points():
                                   "train",
                                   "bench_train", "make_env_flat",
                                   "bench_env", "bench_actuator_net",
-                                  "eval_policy", "export_policy"])
+                                  "eval_policy", "export_policy", "gan",
+                                  "identifier", "inference",
+                                  "load_policy_as_torch"])
 def test_entry_points_raise_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
