@@ -11,8 +11,10 @@ scenarios (the fused SRB-LQR kernel), PPO training of pointfoot_rough at
 env paths on plane terrain (pointfoot_flat, anymal_c_flat, PPO training of
 pointfoot_flat) and on table terrain (the registered pointfoot_rough and
 anymal_c_rough), the recurrent policy's training and inference, the
-gait-MPC and iLQR paths, and sys-ID (the identifier at 4096 envs through
-the fused rollout kernel, the GANs through the simulator).
+gait-MPC and iLQR paths, sys-ID (the identifier at 4096 envs through
+the fused rollout kernel, the GANs through the simulator), and
+data-parallel training (two ranks sharing the card, each launching the
+fused rollout kernels on its shard).
 
 1. device and build: the card's name and power limit; the PointFoot,
    ANYmal, A1, Cholesky and Riccati libraries of pointfoot_tpu_torch/csrc/
@@ -160,7 +162,28 @@ the fused rollout kernel, the GANs through the simulator).
    generator and critic with its gradient penalty, the identifier, the
    direct GAN's pair) forward and backward on the card and on the CPU in
    float32 against the CPU in float64 (the CPU's float32 beyond the
-   tolerance only through a LeakyReLU input at its kink).
+   tolerance only through a LeakyReLU input at its kink);
+17. data parallelism (parallel/mesh.py), after the build, so the ranks
+   only load the libraries: two ranks on cuda:0 (`chip_smoke.py --dp-rank
+   R DIR`, started by the script) on gloo with CUDA tensors, since nccl
+   refuses two ranks on one device, each with 4096 envs of the registered
+   pointfoot_rough: (a) the union of the ranks' rollout_substeps_sharded
+   outputs on the rank's rows of one 8192-env state, bit for bit against
+   this process's rollout_substeps of all 8192 rows; (b) kernel 1 on each
+   rank's rows bit for bit against its plain version; (c) the launches of
+   one DP training iteration on each rank (96 rollout-substep, 24
+   sphere-xyz FK, 0 others); (d) the ranks' parameters, Adam moments and
+   learning rate bit-identical after it; (e) the DP update against one
+   process's update of the gathered rollout from the same parameters,
+   Adam state and permutations (phase 10's tolerances; an Adam moment
+   beyond them passes while within WITNESS_FACTOR of the update of the
+   observations one ulp up); (f) a checkpoint that rank 0 alone writes,
+   with the 8192 rows, loaded back by one process; `[dp]` global
+   env-steps/s including the update, each rank's rollout and update
+   seconds and the gradient all-reduce ms a minibatch.  Then `[dp-nccl]`:
+   one rank on nccl, a DP iteration at 4096 envs against the runner
+   without a mesh from the same state (rollouts bit for bit, the update
+   as in (e)).
 
 The line before the last holds the kernels' JSON record, the one before it
 the card's name and power limit, and the last line is the JSON
@@ -172,13 +195,19 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import datetime
 import json
+import os
+import shutil
+import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from pointfoot_tpu_torch import bench
@@ -197,13 +226,14 @@ from pointfoot_tpu_torch.ops.cuda import build
 from pointfoot_tpu_torch.ops.cuda import cholesky as ch
 from pointfoot_tpu_torch.ops.cuda import riccati as rk
 from pointfoot_tpu_torch.ops.cuda import substep as sp
+from pointfoot_tpu_torch.parallel import mesh as pm
 from pointfoot_tpu_torch.physics import actuator as act
 from pointfoot_tpu_torch.physics import dynamics
 from pointfoot_tpu_torch.physics.assets import get_model
 from pointfoot_tpu_torch.physics.contact import query_surface
 from pointfoot_tpu_torch.physics.model import PhysicsParams, PhysicsState
 from pointfoot_tpu_torch.rl.networks import map_carry
-from pointfoot_tpu_torch.rl.ppo import Transition, compute_gae
+from pointfoot_tpu_torch.rl.ppo import PPO, Transition, compute_gae
 from pointfoot_tpu_torch.sysid import (GANTrainer, IdentifierTrainer,
                                        WGANTrainer, chunk_windows,
                                        simulate_trajectory)
@@ -334,6 +364,17 @@ FLAT_EXPORTED = "logs/pointfoot_flat/tpu_run7/exported/policy.pt"
 # H100's host the WGAN generator's gradients were 8% off through one input
 # of 7.3e-8 that float32 rounded to -3.0e-8 (PERF.md section 6)
 SYSID_NET_TOL = 1e-4
+# phase 17, data parallelism: the registered pointfoot_rough (table
+# terrain) at NUM_ENVS envs a rank, DP_RANKS ranks sharing the one card on
+# gloo with CUDA tensors (nccl refuses two ranks on one device); the
+# sharded rollout is checked on a state DP_STATE_STEPS random-action steps
+# in; DP_WARM iterations before the timed one
+DP_TASK, DP_RANKS, DP_SEED = "pointfoot_rough", 2, 7
+DP_STATE_STEPS, DP_WARM, DP_ALLREDUCE_REPS = 5, 1, 20
+DP_TIMEOUT_S = 300.0
+# a moment of the DP update may lie this many times as far from one
+# process's as that process's own update of observations one ulp away
+WITNESS_FACTOR = 4.0
 # tests/test_torch_ppo.py: losses, KL and gradients (rtol, and atol scaled
 # by the tensor's largest entry for gradients)
 PPO_RTOL, PPO_ATOL = 1e-5, 1e-6
@@ -645,14 +686,20 @@ def warm_with_push(env, policy, seed: int):
     return state.replace(push_force=push), policy(obs)
 
 
+def rollout_args(env, state, actions):
+    """The arguments of `rollout_substeps` after its model: the env's
+    state, actions, terrain and control."""
+    c = env.cfg.control
+    return (state.params, state.physics, actions, state.last_qvel,
+            state.push_force, env.height_fn, env.cfg.sim.dt, c.decimation,
+            env.default_qpos_values, c.action_scale, c.control_type,
+            env.cfg.sim.gravity)
+
+
 def check_env_rollout(env, state, actions, what: str):
     """The fused decimation rollout through the kernels against its plain
     version, on the env's own terrain."""
-    c = env.cfg.control
-    roll_args = (env.model, state.params, state.physics, actions,
-                 state.last_qvel, state.push_force, env.height_fn,
-                 env.cfg.sim.dt, c.decimation, env.default_qpos_values,
-                 c.action_scale, c.control_type, env.cfg.sim.gravity)
+    roll_args = (env.model,) + rollout_args(env, state, actions)
     got = sp.rollout_substeps(*roll_args)
     want = sp.rollout_substeps_plain(*roll_args)
     torch.cuda.synchronize()
@@ -1472,53 +1519,94 @@ def update_card_vs_cpu(runner, rollout: Transition, last_value, tag: str,
         check_close(g_card[k], want, PPO_RTOL,
                     PPO_ATOL * float(want.abs().max()),
                     f"first minibatch gradient {k}, card vs CPU")
+    c = compare_updates(card, cpu, alg, "card vs CPU")
+    log(f"[{tag}] {n} envs x {T} steps, update on the card "
+        f"{s_card:.3f} s, on the CPU {s_cpu:.3f} s: gradients, losses and "
+        f"KL of 20 minibatches within rtol {PPO_RTOL}; learning rates equal "
+        f"over {c['upto']} of {c['minibatches']} minibatches; final params "
+        f"max abs {c['worst']:.3e} (Adam bound {c['bound']:.3e}), "
+        f"{c['loose']} of {c['nparams']} entries beyond 1e-6; Adam moments "
+        f"max abs error {c['moment']:.3e} of their tensor's largest entry; "
+        f"one minibatch's loss and gradient dispatch {calls} aten "
+        f"operations")
+
+
+def compare_updates(got, want, alg, what: str, witness=None) -> dict:
+    """Hold one PPO update (`got`, a PPO after its update) to another from
+    the same start (`want`): every minibatch's losses and KL within
+    PPO_RTOL, the learning rates equal until a KL lies within that
+    tolerance of a threshold of the adaptive rule, the final parameters
+    within Adam's bound and the moments within ADAM_RTOL.  With `witness`,
+    `want`'s update of observations one ulp away (`one_process_update`),
+    a moment tensor beyond ADAM_RTOL passes while it lies no further from
+    `want` than WITNESS_FACTOR times the witness does: over tens of
+    thousands of samples a minibatch holds some whose probability ratio or
+    value lies within roundoff of a clip boundary, and a last-bit change
+    of the forward pass (another matrix-product kernel for another shape)
+    flips those samples' terms of the gradient in or out.  Returns what it
+    found."""
     for k in ("surrogate_loss", "value_loss", "entropy", "kl"):
-        check_close(card.minibatch_metrics[k].cpu(),
-                    cpu.minibatch_metrics[k], PPO_RTOL, PPO_ATOL,
-                    f"minibatch {k}, card vs CPU")
+        check_close(got.minibatch_metrics[k].cpu(),
+                    want.minibatch_metrics[k].cpu(), PPO_RTOL, PPO_ATOL,
+                    f"minibatch {k}, {what}")
     # the rates are equal while no KL sits within the KL tolerance of a
     # threshold of the adaptive rule; after one, the two may branch apart
-    kl = cpu.minibatch_metrics["kl"].double()
+    kl = want.minibatch_metrics["kl"].cpu().double()
     dkl = alg.desired_kl
     near = torch.zeros_like(kl, dtype=torch.bool)
     for edge in (2.0 * dkl, dkl / 2.0):
         near |= (kl - edge).abs() <= PPO_RTOL * edge + PPO_ATOL
     upto = (int(near.nonzero()[0]) + 1 if bool(near.any())
             else len(kl))
-    lr_card = card.minibatch_metrics["lr_intra"].cpu()
-    lr_cpu = cpu.minibatch_metrics["lr_intra"]
-    if not torch.equal(lr_card[:upto], lr_cpu[:upto]):
-        raise AssertionError(f"learning rates differ: card "
-                             f"{lr_card.tolist()}, CPU {lr_cpu.tolist()}")
+    lr_got = got.minibatch_metrics["lr_intra"].cpu()
+    lr_want = want.minibatch_metrics["lr_intra"].cpu()
+    if not torch.equal(lr_got[:upto], lr_want[:upto]):
+        raise AssertionError(f"learning rates differ, {what}: "
+                             f"{lr_got.tolist()} vs {lr_want.tolist()}")
     # Adam steps roundoff-level gradients by about lr * sign(g): an entry
     # may end up as far apart as both sides' rates add up to, 2 * (sum of
     # the rates) while they agree (tests/test_torch_ppo.py)
-    bound = float(lr_card.double().sum() + lr_cpu.double().sum()) + 1e-6
-    worst, loose, moment = 0.0, 0, 0.0
-    sc, sp = card.state_dict(), cpu.state_dict()
-    for k, want in sp["params"].items():
-        err = (sc["params"][k].cpu() - want).abs()
+    bound = float(lr_got.double().sum() + lr_want.double().sum()) + 1e-6
+    worst, loose, moment, spread = 0.0, 0, 0.0, 0.0
+    sg, sw = got.state_dict(), want.state_dict()
+    sx = None if witness is None else witness.state_dict()
+    for k, w_param in sw["params"].items():
+        err = (sg["params"][k].cpu() - w_param.cpu()).abs()
         worst = max(worst, float(err.max()))
         loose += int((err > 1e-6).sum())
         if float(err.max()) > bound:
-            raise AssertionError(f"final {k}: card vs CPU {float(err.max())}"
+            raise AssertionError(f"final {k}, {what}: {float(err.max())}"
                                  f" > Adam bound {bound}")
         for m in ("exp_avg", "exp_avg_sq"):
-            w = sp["adam"][k][m]
+            w = sw["adam"][k][m].cpu()
             scale = float(w.abs().max())
-            got = sc["adam"][k][m].cpu()
-            moment = max(moment, max_err(got, w) / max(scale, 1e-30))
-            check_close(got, w, ADAM_RTOL, ADAM_ATOL * scale,
-                        f"final {m} {k}, card vs CPU")
-    nparams = sum(v.numel() for v in sp["params"].values())
-    log(f"[{tag}] {n} envs x {T} steps, update on the card "
-        f"{s_card:.3f} s, on the CPU {s_cpu:.3f} s: gradients, losses and "
-        f"KL of 20 minibatches within rtol {PPO_RTOL}; learning rates equal "
-        f"over {upto} of {len(kl)} minibatches; final params max abs "
-        f"{worst:.3e} (Adam bound {bound:.3e}), {loose} of {nparams} "
-        f"entries beyond 1e-6; Adam moments max abs error "
-        f"{moment:.3e} of their tensor's largest entry; one minibatch's "
-        f"loss and gradient dispatch {calls} aten operations")
+            g = sg["adam"][k][m].cpu()
+            moment = max(moment, max_err(g, w) / max(scale, 1e-30))
+            if sx is not None:
+                x = max_err(sx["adam"][k][m].cpu(), w)
+                spread = max(spread, x / max(scale, 1e-30))
+                if max_err(g, w) <= WITNESS_FACTOR * x:
+                    continue
+            check_close(g, w, ADAM_RTOL, ADAM_ATOL * scale,
+                        f"final {m} {k}, {what}")
+    return dict(upto=upto, minibatches=len(kl), worst=worst, bound=bound,
+                loose=loose, moment=moment, spread=spread,
+                nparams=sum(v.numel() for v in sw["params"].values()))
+
+
+def one_process_update(net0, state0: dict, alg, roll: Transition, last,
+                       perms, nudge: bool = False):
+    """One process's PPO update of `roll` from a copy of `net0` and the PPO
+    state `state0`; with `nudge`, of the rollout's observations moved one
+    ulp up: the roundoff witness of `compare_updates`."""
+    ppo = PPO(copy.deepcopy(net0), alg)
+    ppo.load_state_dict(state0)
+    if nudge:
+        up = lambda x: torch.nextafter(  # noqa: E731
+            x, torch.full_like(x, float("inf")))
+        roll = roll._replace(obs=up(roll.obs), priv_obs=up(roll.priv_obs))
+    ppo.update(roll, last, perms)
+    return ppo
 
 
 def train_phase(task: str, patch, warm: int, timed: int, tag: str,
@@ -2619,10 +2707,348 @@ def sysid_phase() -> dict:
     return dict(launches=launches, err=err)
 
 
+# ------------------------------- 17. data parallelism, 2 ranks on one card
+
+def dp_global_state(env):
+    """A state of the env's whole batch DP_STATE_STEPS random-action steps
+    in, with a push queued, and the next random actions."""
+    g = torch.Generator(device=env.device).manual_seed(DP_SEED)
+    B, na = env.num_envs, env.num_actions
+
+    def rand_actions():
+        return 0.3 * torch.randn(B, na, generator=g, device=env.device)
+
+    state = env.init_state(0)
+    for _ in range(DP_STATE_STEPS):
+        state, _ = env.step(state, rand_actions())
+    push = 200.0 * (2.0 * torch.rand(B, 3, generator=g, device=env.device)
+                    - 1.0)
+    return state.replace(push_force=push), rand_actions()
+
+
+def timed_iteration(runner, es, obs, priv, perms):
+    """One training iteration with the launch counters reset just before
+    and read just after: (state, obs, priv, metrics, iteration s,
+    rollout s, launches)."""
+    marks = []
+    rollout = runner.rollout
+
+    def timed_rollout(*args, **kwargs):
+        result = rollout(*args, **kwargs)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return result
+
+    runner.rollout = timed_rollout
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    es, obs, priv, metrics = runner.train_iteration(es, obs, priv,
+                                                    perms=perms)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = read_counts()
+    del runner.rollout
+    return es, obs, priv, metrics, t1 - t0, marks[0] - t0, launches
+
+
+def dp_perms(runner):
+    """Per-epoch permutations of the global samples, the same on every
+    rank."""
+    alg = runner.cfg.algorithm
+    n = runner.cfg.runner.num_steps_per_env * runner.env.global_num_envs
+    g = torch.Generator().manual_seed(DP_SEED)
+    return [torch.randperm(n, generator=g)
+            for _ in range(alg.num_learning_epochs)]
+
+
+def to_cpu(tree):
+    """A nested dict of tensors, on the CPU."""
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def dp_rank(rank: int, tmp: str) -> int:
+    """One rank of phase 17 (run as `chip_smoke.py --dp-rank RANK DIR`):
+    gloo with CUDA tensors, both ranks on cuda:0."""
+    pm.init_distributed("gloo", "file://" + os.path.join(tmp, "rdzv"),
+                        world_size=DP_RANKS, rank=rank,
+                        timeout_s=DP_TIMEOUT_S)
+    try:
+        mesh = pm.make_mesh("cuda:0")
+        out = dp_rank_checks(mesh, tmp)
+        torch.save(out, os.path.join(tmp, f"out{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dp_rank_checks(mesh, tmp: str) -> dict:
+    inp = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    env = make_env(DP_TASK, num_envs=DP_RANKS * NUM_ENVS, device=mesh.device)
+    runner = make_alg_runner(env, DP_TASK, mesh=mesh, log_dir=os.path.join(
+        tmp, f"rank{mesh.rank}"))
+    out = {}
+
+    # (a) the sharded rollout on this rank's rows of the parent's state
+    state = env.shard_state(inp["state"])
+    actions = env.shard_rows(inp["actions"])
+    args = rollout_args(env, state, actions)
+    reset_counts()
+    phys, tau, sphere = sp.rollout_substeps_sharded(mesh, env.model, *args)
+    torch.cuda.synchronize()
+    out["rollout_launches"] = read_counts()
+    out["rollout"] = [x.cpu() for x in (
+        *(getattr(phys, f) for f in phys.__dataclass_fields__), tau,
+        sphere)]
+
+    # (b) kernels 1 and 2 on this rank's rows against their plain versions
+    errs = check_rollout((phys, tau, sphere),
+                         sp.rollout_substeps_sharded_plain(mesh, env.model,
+                                                           *args))
+    out["kernel_err"] = max(errs.values())
+
+    # training, fresh from seed 0: warm iterations, then one timed with
+    # the counters (c), after which the ranks' PPO states must agree (d)
+    es = runner.init(0)
+    es, o = env.step(es, torch.zeros(env.num_envs, env.num_actions,
+                                      device=env.device))
+    obs, priv = o.obs, o.privileged_obs
+    perms = dp_perms(runner)
+    for _ in range(DP_WARM):
+        es, obs, priv, _ = runner.train_iteration(es, obs, priv)
+    net0 = copy.deepcopy(runner.network)
+    state0 = copy.deepcopy(runner.ppo.state_dict())
+    es, obs, priv, metrics, secs, roll_secs, launches = timed_iteration(
+        runner, es, obs, priv, perms)
+    check_train_state(runner, state0["update_count"], metrics,
+                      f"DP rank {mesh.rank}")
+    out.update(launches=launches, secs=secs, rollout_secs=roll_secs,
+               metrics={k: v.cpu() for k, v in metrics.items()},
+               ppo=to_cpu(runner.ppo.state_dict()),
+               learning_rate=float(runner.ppo.learning_rate))
+
+    # the gradient all-reduce of one minibatch, alone
+    grads = [p.grad for p in runner.network.parameters()]
+    pm.all_reduce_sum_(grads, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DP_ALLREDUCE_REPS):
+        pm.all_reduce_sum_(grads, mesh)
+    torch.cuda.synchronize()
+    out["allreduce_ms"] = (time.perf_counter() - t0) / DP_ALLREDUCE_REPS \
+        * 1e3
+    out["grad_floats"] = sum(g.numel() for g in grads)
+
+    # (e) the DP update against one process's update of the gathered
+    # rollout, from the same parameters, Adam state and permutations
+    roll = pm.all_gather_rows(runner.storage, mesh, dim=1)
+    with torch.no_grad():
+        last = pm.all_gather_rows(net0.value(priv), mesh)
+    if mesh.rank == 0:
+        alg = runner.cfg.algorithm
+        t0 = time.perf_counter()
+        ppo = one_process_update(net0, state0, alg, roll, last, perms)
+        torch.cuda.synchronize()
+        out["single_update_secs"] = time.perf_counter() - t0
+        out["vs_single"] = compare_updates(
+            runner.ppo, ppo, alg, "DP vs one process",
+            witness=one_process_update(net0, state0, alg, roll, last, perms,
+                                       nudge=True))
+    del roll
+
+    # (f) a collective save: rank 0 writes the global batch
+    runner.current_iteration = DP_WARM + 1
+    out["checkpoint"] = runner.save(es)
+    return out
+
+
+def dp_phase() -> dict:
+    """17. Two ranks on the one card (gloo), 4096 envs each of the
+    registered pointfoot_rough; then one rank on nccl.  Returns kernel 1's
+    and 2's launches a rank in one iteration and the largest error of the
+    sharded rollout and of kernel 1 on the ranks' rows."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    env = make_env(DP_TASK, num_envs=DP_RANKS * NUM_ENVS)
+    state, actions = dp_global_state(env)
+    torch.save({"state": state, "actions": actions},
+               os.path.join(tmp, "inputs.pt"))
+    want = sp.rollout_substeps(env.model, *rollout_args(env, state, actions))
+    want = [x.cpu() for x in (*(getattr(want[0], f)
+                                for f in want[0].__dataclass_fields__),
+                              *want[1:])]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--dp-rank", str(r), tmp])
+             for r in range(DP_RANKS)]
+    try:
+        for p in procs:
+            p.wait(timeout=DP_TIMEOUT_S + 60)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"[dp] ranks exited with "
+                             f"{[p.returncode for p in procs]}")
+    outs = [torch.load(os.path.join(tmp, f"out{r}.pt"), weights_only=False)
+            for r in range(DP_RANKS)]
+    wall = time.perf_counter() - t0
+
+    # (a) the union of the ranks' sharded rollouts, bit for bit
+    err = 0.0
+    for i, w in enumerate(want):
+        got = torch.cat([o["rollout"][i] for o in outs])
+        err = max(err, max_err(got, w))
+        if not torch.equal(got, w):
+            raise AssertionError(f"[dp] sharded rollout output {i}: not "
+                                 f"bit-identical to the single-process "
+                                 f"rollout, max |err| {max_err(got, w)}")
+    for o in outs:
+        expect_counts(o["rollout_launches"],
+                      rollout_substep=env.cfg.control.decimation,
+                      fk_from_state=1)
+    log(f"[dp] rollout_substeps_sharded: the union of {DP_RANKS} ranks' "
+        f"outputs on a {env.num_envs}-env state is bit-identical to the "
+        f"single-process rollout_substeps of the same rows; launches a rank "
+        f"{outs[0]['rollout_launches']}")
+    kerr = max(o["kernel_err"] for o in outs)
+    log(f"[dp] rollout_substeps_sharded on each rank's {NUM_ENVS} rows: "
+        f"bit-identical to rollout_substeps_sharded_plain (max |err| "
+        f"{kerr})")
+
+    # (c) the launches of one iteration on each rank
+    T = get_cfgs(DP_TASK)[1].runner.num_steps_per_env
+    for o in outs:
+        expect_counts(o["launches"],
+                      rollout_substep=env.cfg.control.decimation * T,
+                      fk_from_state=T)
+
+    # (d) the ranks agree bit for bit after the update
+    a, b = outs[0]["ppo"], outs[1]["ppo"]
+    same = (a["learning_rate"] == b["learning_rate"]
+            and a["update_count"] == b["update_count"]
+            and a["adam_step"] == b["adam_step"]
+            and all(torch.equal(a["params"][k], b["params"][k])
+                    and all(torch.equal(a["adam"][k][m], b["adam"][k][m])
+                            for m in ("exp_avg", "exp_avg_sq"))
+                    for k in a["params"]))
+    if not same:
+        raise AssertionError("[dp] the ranks' parameters, Adam moments or "
+                             "learning rates differ after the update")
+
+    # (f) rank 0 alone wrote the checkpoint, of the global batch
+    path = outs[0]["checkpoint"]
+    other = os.path.join(tmp, "rank1")
+    if os.path.exists(other) and os.listdir(other):
+        raise AssertionError(f"[dp] rank 1 wrote {os.listdir(other)}")
+    loader = make_alg_runner(env, DP_TASK)
+    loaded = loader.load(path, env.init_state(1))
+    if loaded.physics.base_pos.shape[0] != env.num_envs or \
+            loader.current_iteration != DP_WARM + 1 or not all(
+                torch.equal(v.cpu(), a["params"][k]) for k, v in
+                loader.ppo.state_dict()["params"].items()):
+        raise AssertionError(f"[dp] checkpoint {path}: "
+                             f"{loaded.physics.base_pos.shape[0]} rows, "
+                             f"iteration {loader.current_iteration}")
+
+    c = outs[0]["vs_single"]
+    steps = T * env.num_envs
+    secs = max(o["secs"] for o in outs)
+    log(f"[dp] {DP_TASK} (table), {DP_RANKS} ranks x {NUM_ENVS} envs "
+        f"sharing cuda:0 on gloo: one iteration {secs:.3f} s, "
+        f"{steps / secs:.0f} global env-steps/s including the update; "
+        f"rollout s {[round(o['rollout_secs'], 4) for o in outs]}, update s "
+        f"{[round(o['secs'] - o['rollout_secs'], 4) for o in outs]}; "
+        f"gradient all-reduce {[round(o['allreduce_ms'], 4) for o in outs]} "
+        f"ms a minibatch ({outs[0]['grad_floats']} floats); launches a "
+        f"rank {outs[0]['launches']}; ranks bit-identical after the update "
+        f"(parameters, Adam moments, learning rate "
+        f"{outs[0]['learning_rate']:.6g}); phase wall {wall:.1f} s")
+    log(f"[dp] the DP update against one process's update of the gathered "
+        f"{env.num_envs}-env rollout ({outs[0]['single_update_secs']:.3f} "
+        f"s): losses and KL within rtol {PPO_RTOL}, learning rates equal "
+        f"over {c['upto']} of {c['minibatches']} minibatches, final params "
+        f"max abs {c['worst']:.3e} (Adam bound {c['bound']:.3e}), "
+        f"{c['loose']} of {c['nparams']} entries beyond 1e-6, Adam moments "
+        f"{c['moment']:.3e} of their largest entry (the one-process update "
+        f"of observations one ulp up: {c['spread']:.3e}); rank 0 alone "
+        f"wrote "
+        f"{os.path.basename(path)} with {env.num_envs} rows, loaded by one "
+        f"process")
+    del loader, env
+    shutil.rmtree(tmp, ignore_errors=True)
+    nccl = dp_nccl_world1()
+    return dict(launches=[o["launches"] for o in outs],
+                err=max(err, kerr), nccl=nccl)
+
+
+def dp_nccl_world1() -> dict:
+    """One rank on nccl: a DP iteration at 4096 envs through the DP code
+    path against the runner without a mesh, from the same state: both
+    take a warm iteration, then the DP runner takes the other's PPO state
+    (their updates differ in last bits) and both take the timed one."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        tmp, "rdzv"), world_size=1, rank=0,
+        timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        mesh = pm.make_mesh("cuda:0")
+        runs = []
+        for m in (None, mesh):
+            env = make_env(DP_TASK, num_envs=NUM_ENVS)
+            runner = make_alg_runner(env, DP_TASK, mesh=m)
+            es = runner.init(0)
+            es, o = env.step(es, torch.zeros(NUM_ENVS, env.num_actions,
+                                             device=env.device))
+            runs.append([runner, *runner.train_iteration(
+                es, o.obs, o.privileged_obs)[:3]])  # warm-up
+        runs[1][0].ppo.load_state_dict(runs[0][0].ppo.state_dict())
+        net0 = copy.deepcopy(runs[0][0].network)
+        state0 = copy.deepcopy(runs[0][0].ppo.state_dict())
+        perms = dp_perms(runs[0][0])
+        res = []
+        for runner, es, obs, priv in runs:
+            _, _, priv, _, secs, roll_secs, launches = timed_iteration(
+                runner, es, obs, priv, perms)
+            res.append((runner, secs, roll_secs, launches))
+        (r0, s0, rs0, l0), (r1, s1, rs1, l1) = res
+        with torch.no_grad():
+            last = net0.value(priv)
+        for k, v in r0.storage._asdict().items():
+            if not torch.equal(getattr(r1.storage, k), v):
+                raise AssertionError(f"[dp-nccl] rollout {k} differs from "
+                                     f"the runner without a mesh")
+        if l0 != l1:
+            raise AssertionError(f"[dp-nccl] launches {l1} != {l0}")
+        c = compare_updates(
+            r1.ppo, r0.ppo, r0.cfg.algorithm, "nccl DP vs one process",
+            witness=one_process_update(net0, state0, r0.cfg.algorithm,
+                                       r0.storage, last, perms,
+                                       nudge=True))
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[dp-nccl] one rank on {backend}, {NUM_ENVS} envs: the DP iteration "
+        f"{s1:.3f} s (rollout {rs1:.3f}), without a mesh {s0:.3f} s "
+        f"(rollout {rs0:.3f}); rollouts bit-identical, launches {l1}; "
+        f"update: losses and KL within rtol {PPO_RTOL}, learning rates equal "
+        f"over {c['upto']} of {c['minibatches']}, final params max abs "
+        f"{c['worst']:.3e} (Adam bound {c['bound']:.3e}), Adam moments "
+        f"{c['moment']:.3e} of their largest entry (the one-process update "
+        f"of observations one ulp up: {c['spread']:.3e})")
+    return l1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--dp-rank"]:  # a rank of phase 17
+        return dp_rank(int(sys.argv[2]), sys.argv[3])
     t_start = time.perf_counter()
     card = bench.card_line(torch.device("cuda"))
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -2678,6 +3104,9 @@ def main() -> int:
     log(f"[t] iLQR done at {time.perf_counter() - t_start:.1f} s")
     sysid = sysid_phase()
     log(f"[t] sys-ID done at {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()  # the ranks of phase 17 share the card
+    dp = dp_phase()
+    log(f"[t] data parallelism done at {time.perf_counter() - t_start:.1f} s")
     phase15 = {k: dict(gait_launches=gait["launches"].get(k, 0),
                        ilqr_launches=ilqr_run["launches"][k])
                for k in ("substep", "fk_contact_xy", "chol_solve", "srb_lqr")}
@@ -2691,11 +3120,17 @@ def main() -> int:
                            pf_launches["rollout_substep"], **roll), **flat,
              rnn_train_launches=rnn_launches["rollout_substep"],
              sysid_launches=sysid["launches"],
-             sysid_max_abs_err=sysid["err"]),
+             sysid_max_abs_err=sysid["err"],
+             dp_launches=[c["rollout_substep"] for c in dp["launches"]],
+             dp_nccl_launches=dp["nccl"]["rollout_substep"],
+             dp_max_abs_err=dp["err"]),
         dict(kernel_record("fk_from_state_kernel", SUBSTEP_SRC,
                            "pointfoot_tpu/ops/pallas/substep.py:328",
                            pf_launches["fk_from_state"], **fk),
-             rnn_train_launches=rnn_launches["fk_from_state"]),
+             rnn_train_launches=rnn_launches["fk_from_state"],
+             dp_launches=[c["fk_from_state"] for c in dp["launches"]],
+             dp_nccl_launches=dp["nccl"]["fk_from_state"],
+             dp_max_abs_err=dp["err"]),
         dict(kernel_record("substep_kernel", SUBSTEP_SRC,
                            "pointfoot_tpu/ops/pallas/substep.py:65",
                            any_launches["substep"], **sub),

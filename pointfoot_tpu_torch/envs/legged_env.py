@@ -20,6 +20,12 @@ rollout runs without surface rows), there is no height scan, and the env
 origins lie on a square lattice: with as many levels as types, level and
 type come from one formula, so the origins fall on the lattice's diagonal,
 as in the JAX env (envs do not interact, so the physics is unaffected).
+
+For data-parallel training (parallel/mesh.py) the runner sets `shard_mesh`:
+the env then steps one rank's shard of `global_num_envs` (`num_envs` is
+the shard's size), takes the fused rollout per rank
+(ops/cuda/substep.rollout_substeps_sharded) when the shard is wide
+enough, and the command curriculum judges the episodes of all ranks.
 """
 
 from __future__ import annotations
@@ -34,7 +40,11 @@ import torch
 from pointfoot_tpu_torch.device import resolve_device
 from pointfoot_tpu_torch.envs.config import LeggedEnvCfg
 from pointfoot_tpu_torch.ops import quat as quat_ops
-from pointfoot_tpu_torch.ops.cuda.substep import rollout_substeps
+from pointfoot_tpu_torch.ops.cuda.substep import (rollout_substeps,
+                                                  rollout_substeps_sharded)
+from pointfoot_tpu_torch.parallel.mesh import (all_gather_rows,
+                                               all_reduce_sum_, env_sharding,
+                                               rank_seed, shard_batch)
 from pointfoot_tpu_torch.physics import actuator as act
 from pointfoot_tpu_torch.physics import dynamics
 from pointfoot_tpu_torch.physics.assets import get_model
@@ -79,6 +89,10 @@ class EnvState:
     # commands and arc length for turns)
     cmd_progress: torch.Tensor
 
+    # the fields that are not per env: every rank of a data-parallel run
+    # holds them whole
+    REPLICATED = ("common_step", "lin_vel_x_range")
+
     def replace(self, **kw) -> "EnvState":
         return dataclasses.replace(self, **kw)
 
@@ -102,7 +116,8 @@ class LeggedEnv:
         dev = self.device
         self.model = get_model(cfg.asset.model_name).to(dev)
         m = self.model
-        self.num_envs = cfg.env.num_envs
+        self.global_num_envs = cfg.env.num_envs
+        self._shard_mesh = None
         self.num_obs = cfg.env.num_observations
         self.num_privileged_obs = cfg.env.num_privileged_obs
         self.num_actions = cfg.env.num_actions
@@ -113,7 +128,7 @@ class LeggedEnv:
 
         self.is_plane = cfg.terrain.mesh_type == "plane"
         if self.is_plane:
-            side = int(np.ceil(np.sqrt(self.num_envs)))
+            side = int(np.ceil(np.sqrt(self.global_num_envs)))
             self.terrain = flat_grid(
                 size=max(2 * side * cfg.env.env_spacing + 20, 60),
                 num_levels=side, num_types=side,
@@ -203,6 +218,49 @@ class LeggedEnv:
                        * cfg.normalization.height_meas_scale, device=dev)
             if (self.num_privileged_obs or 0) > self.num_obs else None)
 
+    # ------------------------------------------------------- data parallelism
+
+    @property
+    def shard_mesh(self):
+        """The data-parallel mesh (parallel/mesh.py) whose rank's shard of
+        the `global_num_envs` envs this env steps, or None.  Set by the
+        runner; raises when the global batch does not divide."""
+        return self._shard_mesh
+
+    @shard_mesh.setter
+    def shard_mesh(self, mesh) -> None:
+        if mesh is not None:
+            env_sharding(mesh, self.global_num_envs)
+        self._shard_mesh = mesh
+
+    @property
+    def num_envs(self) -> int:
+        """The envs this process steps: all of them, or its rank's
+        shard."""
+        mesh = self._shard_mesh
+        return (self.global_num_envs if mesh is None
+                else self.global_num_envs // mesh.world_size)
+
+    def shard_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a (global_num_envs, ...) tensor; the tensor
+        itself without a mesh."""
+        mesh = self._shard_mesh
+        return x if mesh is None else x[env_sharding(mesh,
+                                                     self.global_num_envs)]
+
+    def shard_state(self, state: EnvState) -> EnvState:
+        """This rank's rows of a state of the global batch."""
+        return shard_batch(state, self._shard_mesh,
+                           batch=self.global_num_envs,
+                           replicate=EnvState.REPLICATED)
+
+    def gather_state(self, state: EnvState) -> EnvState:
+        """The state of the global batch from every rank's rows (a
+        collective); the state itself without a mesh."""
+        return all_gather_rows(state, self._shard_mesh,
+                               batch=self.num_envs,
+                               replicate=EnvState.REPLICATED)
+
     # ------------------------------------------------------------------ init
 
     def _build_noise_vec(self) -> np.ndarray:
@@ -245,11 +303,10 @@ class LeggedEnv:
         return torch.randint(lo, hi, shape, generator=self.generator,
                              device=self.device)
 
-    def _sample_params(self) -> PhysicsParams:
-        """Domain randomization at init: friction buckets, added base mass,
-        base CoM shift."""
+    def _sample_params(self, B: int) -> PhysicsParams:
+        """Domain randomization at init of B envs: friction buckets, added
+        base mass, base CoM shift."""
         cfg = self.cfg.domain_rand
-        B = self.num_envs
         nc = len(self.model.collision_body)
         if cfg.randomize_friction:
             buckets = self._uniform((cfg.num_friction_buckets,),
@@ -275,14 +332,21 @@ class LeggedEnv:
             kp=self.kp.expand(B, self.model.nj).clone(),
             kd=self.kd.expand(B, self.model.nj).clone())
 
-    def init_state(self, seed: int = 0) -> EnvState:
+    def init_state(self, seed: int = 0,
+                   random_episode_step: bool = False) -> EnvState:
         """Fresh state: domain randomization, terrain cells, first reset of
-        every env.  Seeds the env's generator."""
+        every env, and with `random_episode_step` episode steps drawn in
+        [0, max_episode_length).  Seeds the env's generator.
+
+        With a shard mesh every rank draws the state of the global batch
+        from `seed`, as one process would, and keeps its rows (the JAX
+        runner's init, then `shard_batch`); the generator then goes on
+        from a seed of the rank's own."""
         self.generator.manual_seed(seed)
-        B = self.num_envs
+        B = self.global_num_envs
         m = self.model
         dev = self.device
-        params = self._sample_params()
+        params = self._sample_params(B)
         max_init = min(self.cfg.terrain.max_init_terrain_level,
                        self.terrain.num_levels - 1)
         if self.cfg.terrain.curriculum and not self.is_plane:
@@ -333,8 +397,16 @@ class LeggedEnv:
             time_out=zeros(B, dtype=torch.bool),
             cmd_progress=zeros(B),
         )
-        return self._reset_envs(state, torch.ones(B, dtype=torch.bool,
-                                                  device=dev))
+        state = self._reset_envs(state, torch.ones(B, dtype=torch.bool,
+                                                   device=dev))
+        if random_episode_step:
+            state = state.replace(episode_step=self._randint(
+                (B,), 0, self.max_episode_length))
+        if self.num_envs < B:
+            state = self.shard_state(state)
+            self.generator.manual_seed(rank_seed(seed,
+                                                      self._shard_mesh.rank))
+        return state
 
     # ------------------------------------------------------------- internals
 
@@ -379,17 +451,33 @@ class LeggedEnv:
     def _physics_rollout(self, state: EnvState, actions: torch.Tensor):
         """Decimation loop: torques recomputed each substep, the queued push
         applied on substep 0 only.  Returns (physics, last torques,
-        actuator carry, sphere positions of the final state or None)."""
+        actuator carry, sphere positions of the final state or None).
+
+        PD control takes the fused rollout where the kernels' batch is wide
+        enough, as in JAX (pointfoot_tpu/envs/legged_env.py:442-472): one
+        process at MEGA_MIN_BATCH envs or more; a rank of a data-parallel
+        run (world size > 1) on its shard when the global batch divides
+        and the shard holds MEGA_MIN_BATCH envs or more.  Otherwise each
+        process takes the scan path on its own rows."""
         c = self.cfg.control
         sim_dt = self.cfg.sim.dt
-        if not self.use_actuator_net and \
-                self.num_envs >= dynamics.MEGA_MIN_BATCH:
-            phys, tau, sphere_pos = rollout_substeps(
-                self.model, state.params, state.physics, actions,
+        mesh = self._shard_mesh
+        args = (self.model, state.params, state.physics, actions,
                 state.last_qvel, state.push_force, self.height_fn, sim_dt,
                 c.decimation, self.default_qpos_values, c.action_scale,
-                c.control_type, gravity=self.cfg.sim.gravity)
-            return phys, tau, state.actuator_carry, sphere_pos
+                c.control_type)
+        if not self.use_actuator_net:
+            if mesh is None or mesh.world_size == 1:
+                if self.num_envs >= dynamics.MEGA_MIN_BATCH:
+                    phys, tau, sphere_pos = rollout_substeps(
+                        *args, gravity=self.cfg.sim.gravity)
+                    return phys, tau, state.actuator_carry, sphere_pos
+            elif (self.global_num_envs % mesh.world_size == 0
+                  and self.global_num_envs // mesh.world_size
+                  >= dynamics.MEGA_MIN_BATCH):
+                phys, tau, sphere_pos = rollout_substeps_sharded(
+                    mesh, *args, gravity=self.cfg.sim.gravity)
+                return phys, tau, state.actuator_carry, sphere_pos
 
         # the scan path: one step_batched per substep
         phys, last_qvel = state.physics, state.last_qvel
@@ -695,7 +783,7 @@ class LeggedEnv:
                            ) -> EnvState:
         """New commands where `need`, respecting pins."""
         cfg = self.cfg.commands
-        B = self.num_envs
+        B = need.shape[0]
         need = need & ~state.cmd_pinned
         lo, hi = state.lin_vel_x_range[0], state.lin_vel_x_range[1]
         vx = self._uniform((B,), lo, hi)
@@ -738,9 +826,10 @@ class LeggedEnv:
 
     def _reset_envs(self, state: EnvState, done: torch.Tensor) -> EnvState:
         """Masked reset of done envs: curricula, state resample, buffer
-        clears, fresh commands."""
+        clears, fresh commands.  The command curriculum judges the episodes
+        that end across all ranks."""
         cfg = self.cfg
-        B = self.num_envs
+        B = done.shape[0]
         m = self.model
         terrain = self.terrain
 
@@ -785,9 +874,13 @@ class LeggedEnv:
         if cfg.commands.curriculum:
             idx = self.reward_names.index("tracking_lin_vel")
             track_scale = dict(self.reward_terms)["tracking_lin_vel"]
-            n_done = done.sum()
-            mean_track = torch.where(done, state.episode_sums[:, idx],
-                                     0.0).sum() / torch.clamp_min(n_done, 1)
+            n_done = done.sum().to(torch.float32)
+            track = torch.where(done, state.episode_sums[:, idx], 0.0).sum()
+            # a rank's shard sums with the others' (at init every rank
+            # resets the global batch itself)
+            if B < self.global_num_envs:
+                all_reduce_sum_([n_done, track], self._shard_mesh)
+            mean_track = track / torch.clamp_min(n_done, 1)
             trigger = (((state.common_step % self.max_episode_length) == 0)
                        & (n_done > 0)
                        & (mean_track / self.max_episode_length
@@ -882,7 +975,7 @@ class LeggedEnv:
         cmds[:, : cmd.shape[-1]] = cmd
         return state.replace(
             commands=cmds,
-            cmd_pinned=torch.ones(self.num_envs, dtype=torch.bool,
+            cmd_pinned=torch.ones(cmds.shape[0], dtype=torch.bool,
                                   device=self.device))
 
 

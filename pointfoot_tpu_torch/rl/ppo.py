@@ -19,6 +19,17 @@ rate is kept in float32, as JAX keeps it, so both packages take the same
 sequence of rates from the same KLs.  `RecurrentPPO` shares the loss, the
 optimizer step and the SGD loop, and cuts its minibatches from the env axis
 (BPTT over each env's whole window).
+
+With a data-parallel mesh (parallel/mesh.py) each rank holds its envs' part
+of the rollout, and the update computes what one process computes on the
+global rollout, as the JAX package's update under pjit does: every rank
+draws the same permutation of the global samples (or envs) from the
+PPO's generator, and a minibatch's loss is the sum over the entries the
+rank holds divided by the global minibatch size.  The advantage
+normalization, the losses and the KL that drives the adaptive rate are
+reduced across ranks, and the gradients are summed across ranks before
+they are zeroed where not finite and clipped, so every rank takes the same
+step and branch and ends with the same parameters, Adam moments and rate.
 """
 
 from __future__ import annotations
@@ -30,6 +41,8 @@ import numpy as np
 import torch
 
 from pointfoot_tpu_torch.envs.config import AlgorithmCfg
+from pointfoot_tpu_torch.parallel.mesh import (Mesh, all_reduce_mean_,
+                                               all_reduce_sum_)
 from pointfoot_tpu_torch.rl.networks import (ActorCritic, gaussian_entropy,
                                              gaussian_log_prob, map_carry)
 
@@ -90,9 +103,11 @@ class PPO:
 
     METRICS = ("surrogate_loss", "value_loss", "entropy", "kl", "lr_intra")
 
-    def __init__(self, network: ActorCritic, cfg: AlgorithmCfg):
+    def __init__(self, network: ActorCritic, cfg: AlgorithmCfg,
+                 mesh: Optional[Mesh] = None):
         self.network = network
         self.cfg = cfg
+        self.mesh = mesh  # data parallelism over its ranks when given
         self.params = list(network.parameters())
         self.device = self.params[0].device
         self.generator = torch.Generator(device=self.device)
@@ -113,18 +128,36 @@ class PPO:
     # ----------------------------------------------------------------- loss
 
     def _loss_from_outputs(self, mean, std, value, batch: Transition,
-                           advantages, returns):
+                           advantages, returns, count: Optional[int] = None):
+        """The minibatch loss and its metrics.  With a mesh, `count` is the
+        global minibatch's number of entries: the loss is this rank's share
+        of the global loss (its gradients sum across ranks to the global
+        gradient), the metrics are the global ones."""
         cfg = self.cfg
+        mesh = self.mesh
         log_prob = gaussian_log_prob(mean, std, batch.action)
         ratio = torch.exp(log_prob - batch.log_prob)
 
         # jnp.std: ddof 0
-        norm_adv = (advantages - advantages.mean()) / (
-            advantages.std(correction=0) + 1e-8)
+        if mesh is None:
+            avg = torch.mean
+            norm_adv = (advantages - advantages.mean()) / (
+                advantages.std(correction=0) + 1e-8)
+        else:
+            def avg(x):
+                return x.sum() / count
+
+            # two passes over the global minibatch, as jnp.std
+            mu = advantages.sum()
+            all_reduce_sum_([mu], mesh)
+            mu = mu / count
+            dev2 = ((advantages - mu) ** 2).sum()
+            all_reduce_sum_([dev2], mesh)
+            norm_adv = (advantages - mu) / (torch.sqrt(dev2 / count) + 1e-8)
         surr1 = ratio * norm_adv
         surr2 = torch.clamp(ratio, 1.0 - cfg.clip_param,
                             1.0 + cfg.clip_param) * norm_adv
-        surrogate_loss = -torch.mean(torch.minimum(surr1, surr2))
+        surrogate_loss = -avg(torch.minimum(surr1, surr2))
 
         if cfg.use_clipped_value_loss:
             value_clipped = batch.value + torch.clamp(
@@ -133,9 +166,9 @@ class PPO:
                                    (value_clipped - returns) ** 2)
         else:
             v_loss = (value - returns) ** 2
-        value_loss = torch.mean(v_loss)
+        value_loss = avg(v_loss)
 
-        entropy = torch.mean(gaussian_entropy(std))
+        entropy = avg(gaussian_entropy(std))
         loss = (surrogate_loss + cfg.value_loss_coef * value_loss
                 - cfg.entropy_coef * entropy)
 
@@ -148,21 +181,25 @@ class PPO:
                 - 0.5, dim=-1)
             if cfg.kl_winsor > 0.0:
                 kl_per_sample = torch.clamp_max(kl_per_sample, cfg.kl_winsor)
-            kl = torch.mean(kl_per_sample)
-        metrics = dict(surrogate_loss=surrogate_loss.detach(),
-                       value_loss=value_loss.detach(),
-                       entropy=entropy.detach(), kl=kl)
+            kl = avg(kl_per_sample)
+        metrics = dict(surrogate_loss=surrogate_loss.detach().clone(),
+                       value_loss=value_loss.detach().clone(),
+                       entropy=entropy.detach().clone(), kl=kl)
+        all_reduce_sum_(list(metrics.values()), mesh)
         return loss, metrics
 
-    def loss_and_grad(self, batch: Transition, advantages, returns):
+    def loss_and_grad(self, batch: Transition, advantages, returns,
+                      count: Optional[int] = None):
         """The minibatch loss and its metrics; leaves the gradients in the
-        parameters' `.grad`."""
+        parameters' `.grad` (with a mesh, this rank's share: `_sgd_step`
+        sums them across ranks).  `count`: the global minibatch size, with
+        a mesh."""
         net = self.network
         self.optimizer.zero_grad(set_to_none=False)
         mean, std = net.distribution(batch.obs)
         value = net.value(batch.priv_obs)
         loss, metrics = self._loss_from_outputs(mean, std, value, batch,
-                                                advantages, returns)
+                                                advantages, returns, count)
         loss.backward()
         return loss.detach(), metrics
 
@@ -171,6 +208,7 @@ class PPO:
     def _sgd_step(self, kl: float) -> None:
         cfg = self.cfg
         grads = [p.grad for p in self.params]
+        all_reduce_sum_(grads, self.mesh)
         zero_non_finite_(grads)
         clip_by_global_norm_(grads, cfg.max_grad_norm)
         self.optimizer.param_groups[0]["lr"] = float(self.learning_rate)
@@ -197,19 +235,38 @@ class PPO:
         package's metrics: the means over minibatches of the surrogate and
         value losses, the entropy, the KL and the learning rate each
         minibatch used (`lr_intra`), then the final `learning_rate`,
-        `mean_advantage` and `mean_return`."""
-        T, B = rollout.reward.shape
+        `mean_advantage` and `mean_return`.
+
+        With a mesh the rollout holds this rank's b envs, the permutations
+        run over the T * B samples of the global batch (B = b * world
+        size; sample t * B + e of global env e), and each minibatch takes
+        the samples of this rank's envs."""
+        T, b = rollout.reward.shape
         advantages, returns = self._gae(rollout, last_value)
-        n = T * B
-        flat = Transition(*(x.reshape((n,) + x.shape[2:]) for x in rollout))
+        flat = Transition(*(x.reshape((T * b,) + x.shape[2:])
+                            for x in rollout))
         adv_flat = advantages.reshape(-1)
         ret_flat = returns.reshape(-1)
+        lo, B = self._rows(b)
 
         def minibatch(idx):
+            count = None
+            if self.mesh is not None:
+                count = idx.numel()
+                e = idx % B
+                own = (e >= lo) & (e < lo + b)
+                idx = (idx // B)[own] * b + e[own] - lo
             return self.loss_and_grad(Transition(*(x[idx] for x in flat)),
-                                      adv_flat[idx], ret_flat[idx])
+                                      adv_flat[idx], ret_flat[idx], count)
 
-        return self._epochs(n, perms, minibatch, advantages, returns)
+        return self._epochs(T * B, perms, minibatch, advantages, returns)
+
+    def _rows(self, b: int) -> Tuple[int, int]:
+        """(the first global env of this rank's b envs, the global env
+        count)."""
+        if self.mesh is None:
+            return 0, b
+        return self.mesh.rank * b, self.mesh.world_size * b
 
     def _gae(self, rollout: Transition, last_value):
         return compute_gae(rollout.reward, rollout.done, rollout.time_out,
@@ -242,6 +299,9 @@ class PPO:
                                             device=self.device)
         out["mean_advantage"] = advantages.mean()
         out["mean_return"] = returns.mean()
+        # every rank holds as many samples: the mean of the ranks' means
+        all_reduce_mean_([out["mean_advantage"], out["mean_return"]],
+                         self.mesh)
         return out
 
     # ---------------------------------------------------------------- state
@@ -299,13 +359,15 @@ class RecurrentPPO(PPO):
         return self.network.replay(carry0, batch.obs, batch.priv_obs,
                                    done_prev)
 
-    def loss_and_grad(self, carry0, batch: Transition, advantages, returns):
+    def loss_and_grad(self, carry0, batch: Transition, advantages, returns,
+                      count: Optional[int] = None):
         """The window loss of a minibatch of envs and its metrics; leaves
-        the gradients in the parameters' `.grad`."""
+        the gradients in the parameters' `.grad`.  `count`: the global
+        minibatch's T * envs, with a mesh."""
         self.optimizer.zero_grad(set_to_none=False)
         mean, std, value = self.sequence_outputs(carry0, batch)
         loss, metrics = self._loss_from_outputs(mean, std, value, batch,
-                                                advantages, returns)
+                                                advantages, returns, count)
         loss.backward()
         return loss.detach(), metrics
 
@@ -315,16 +377,22 @@ class RecurrentPPO(PPO):
         """GAE, then epochs x env-axis minibatches with BPTT over the
         window, from `carry0`, the carry the rollout started with.  `perms`
         gives one permutation of the B envs per epoch; the metrics are
-        PPO.update's."""
+        PPO.update's.  With a mesh the permutations run over the global
+        envs, and each minibatch takes the envs this rank holds."""
         if carry0 is None:
             raise ValueError("RecurrentPPO.update needs the rollout's carry0")
-        B = rollout.reward.shape[1]
+        T, b = rollout.reward.shape
         advantages, returns = self._gae(rollout, last_value)
+        lo, B = self._rows(b)
 
         def minibatch(idx):
+            count = None
+            if self.mesh is not None:
+                count = T * idx.numel()
+                idx = idx[(idx >= lo) & (idx < lo + b)] - lo
             return self.loss_and_grad(
                 map_carry(lambda c: c[idx], carry0),
                 Transition(*(x[:, idx] for x in rollout)),
-                advantages[:, idx], returns[:, idx])
+                advantages[:, idx], returns[:, idx], count)
 
         return self._epochs(B, perms, minibatch, advantages, returns)

@@ -23,8 +23,19 @@ no carry, as in JAX.
 
 Checkpoints are torch files, `model_<iteration>.pt`, holding the PPO state
 (parameters, Adam moments, learning rate, update count), the iteration and
-the env state.  Not ported yet: the data-parallel mesh and the bench-lock
-handshake of the JAX runner.
+the env state.
+
+With a data-parallel mesh (parallel/mesh.py; the JAX runner's `mesh`) the
+env steps this rank's shard of the global batch, and the runner shards
+what JAX shards: the initial state is the global one drawn from the seed,
+the action noise is drawn for the global batch and sliced, and the
+recurrent carry is the rank's rows.  Parameters and optimizer state are
+replicated (the network is broadcast from rank 0 at init) and the PPO
+update reduces across ranks (rl/ppo.py).  Metrics are reduced to their
+global values on every rank; only rank 0 logs, prints and writes, and
+`save` is a collective that gathers the env state so that rank 0 writes
+the global batch.  Not ported yet: the bench-lock handshake of the JAX
+runner.
 """
 
 from __future__ import annotations
@@ -40,6 +51,9 @@ import torch
 
 from pointfoot_tpu_torch.envs.config import TrainCfg
 from pointfoot_tpu_torch.envs.legged_env import EnvState
+from pointfoot_tpu_torch.parallel.mesh import (Mesh, all_reduce_mean_,
+                                               all_reduce_sum_, replicated,
+                                               shard_batch)
 from pointfoot_tpu_torch.rl.networks import (ActorCritic,
                                              ActorCriticRecurrent,
                                              carry_leaves, gaussian_log_prob,
@@ -53,10 +67,23 @@ INFO_KEYS = ("episode_rew", "num_resets", "terrain_level", "max_command_x",
 
 class OnPolicyRunner:
     def __init__(self, env, train_cfg: TrainCfg,
-                 log_dir: Optional[str] = None):
+                 log_dir: Optional[str] = None, mesh: Optional[Mesh] = None):
+        """`mesh`: train data-parallel over its ranks; the env (built
+        with the global batch on the mesh's device) steps this rank's
+        shard."""
+        if mesh is not None:
+            dev = torch.device(env.device)
+            if dev.type == "cuda" and dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+            if dev != mesh.device:
+                raise ValueError(f"the env runs on {env.device}, the mesh's "
+                                 f"rank on {mesh.device}")
+            env.shard_mesh = mesh
         self.env = env
         self.cfg = train_cfg
         self.log_dir = log_dir
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.rank == 0  # logs and writes
         self.device = env.device
         p = train_cfg.policy
         self.recurrent = (train_cfg.runner.policy_class_name
@@ -74,7 +101,7 @@ class OnPolicyRunner:
                 p.activation, p.init_noise_std)
             ppo_cls = PPO
         self.network.to(self.device)
-        self.ppo = ppo_cls(self.network, train_cfg.algorithm)
+        self.ppo = ppo_cls(self.network, train_cfg.algorithm, mesh=mesh)
         self.generator = torch.Generator(device=self.device)
         self.current_iteration = 0
         self._writer = None
@@ -83,14 +110,17 @@ class OnPolicyRunner:
 
     # ---------------------------------------------------------------- setup
 
-    def init(self, seed: int) -> EnvState:
-        """Fresh network (drawn on the CPU, the same on every device), Adam
-        state and learning rate; seeded generators; a fresh env state."""
+    def init(self, seed: int, random_episode_step: bool = False
+             ) -> EnvState:
+        """Fresh network (drawn on the CPU, the same on every device;
+        broadcast from rank 0 with a mesh), Adam state and learning rate;
+        seeded generators; a fresh env state (`LeggedEnv.init_state`)."""
         self.network.reset_parameters(torch.Generator().manual_seed(seed))
+        replicated(self.network, self.mesh)
         self.ppo.reset()
         self.generator.manual_seed(seed + 1)
         self.ppo.generator.manual_seed(seed + 2)
-        return self.env.init_state(seed)
+        return self.env.init_state(seed, random_episode_step)
 
     # ------------------------------------------------------------ iteration
 
@@ -119,8 +149,9 @@ class OnPolicyRunner:
     def rollout(self, env_state: EnvState, obs, priv_obs, noise=None):
         """`num_steps_per_env` policy steps.  `priv_obs` is None for a
         symmetric-critic task, and `obs` stands in for it.  The action noise
-        comes from the runner's generator unless `noise` (T, B, na) gives
-        it.  Returns (env state, obs, priv_obs, the rollout as a Transition
+        comes from the runner's generator (drawn for the global batch, with
+        a mesh, and sliced) unless `noise` (T, B, na; this rank's rows)
+        gives it.  Returns (env state, obs, priv_obs, the rollout as a Transition
         of (T, B, ...) storage, the per-step infos)."""
         env_state, obs, priv_obs, _, st, infos = self._rollout(
             env_state, obs, priv_obs, None, noise)
@@ -140,6 +171,7 @@ class OnPolicyRunner:
 
     def _rollout(self, env_state, obs, priv_obs, carry, noise):
         net = self.network
+        env = self.env
         st = self._buffers(obs, priv_obs)
         T = st.obs.shape[0]
         infos = {k: [] for k in INFO_KEYS}
@@ -150,8 +182,14 @@ class OnPolicyRunner:
                 value = net.value(po)
             else:
                 carry, (mean, std, value) = net(carry, obs, po)
-            action = sample_action(mean, std, self.generator,
-                                   None if noise is None else noise[t])
+            eps = None if noise is None else noise[t]
+            if eps is None and env.shard_mesh is not None:
+                # the global batch's draw, this rank's rows
+                eps = env.shard_rows(torch.randn(
+                    (env.global_num_envs,) + mean.shape[1:],
+                    generator=self.generator, device=mean.device,
+                    dtype=mean.dtype))
+            action = sample_action(mean, std, self.generator, eps)
             log_prob = gaussian_log_prob(mean, std, action)
             st.obs[t].copy_(obs)
             if priv_obs is not None:
@@ -223,6 +261,8 @@ class OnPolicyRunner:
 
     def _finish_iteration(self, env_state, obs, priv_obs, rollout, infos,
                           metrics):
+        """The iteration's metrics; with a mesh, reduced across ranks to
+        those of the global batch (on every rank)."""
         metrics["mean_reward"] = torch.mean(rollout.reward)
         metrics["mean_episode_length"] = torch.mean(
             env_state.episode_step.to(torch.float32))
@@ -230,13 +270,21 @@ class OnPolicyRunner:
             torch.exp(self.network.log_std.detach()))
         # episode decomposition averaged over the steps that had resets
         n_resets = torch.sum(infos["num_resets"])
-        metrics["episode_rew"] = torch.sum(
-            infos["episode_rew"] * infos["num_resets"][:, None], dim=0
-        ) / torch.clamp_min(n_resets, 1)
-        metrics["num_resets"] = n_resets
+        ep_sum = torch.sum(
+            infos["episode_rew"] * infos["num_resets"][:, None], dim=0)
         metrics["num_nan_quarantined"] = torch.sum(
             infos["num_nan_quarantined"])
         metrics["terrain_level"] = infos["terrain_level"][-1]
+        if self.mesh is not None:
+            all_reduce_sum_([n_resets, metrics["num_nan_quarantined"]],
+                            self.mesh)
+            all_reduce_sum_([ep_sum], self.mesh)
+            # every rank holds as many envs: the mean of the ranks' means
+            all_reduce_mean_([metrics["mean_reward"],
+                              metrics["mean_episode_length"],
+                              metrics["terrain_level"]], self.mesh)
+        metrics["episode_rew"] = ep_sum / torch.clamp_min(n_resets, 1)
+        metrics["num_resets"] = n_resets
         metrics["max_command_x"] = infos["max_command_x"][-1]
         return env_state, obs, priv_obs, metrics
 
@@ -249,13 +297,11 @@ class OnPolicyRunner:
         `seed` (the config's by default), with random episode lengths drawn
         from the env's generator; with one it goes on from the runner's
         current network and optimizer (a resumed run).  Returns the final
-        env state."""
+        env state.  With a mesh every rank calls it."""
         env = self.env
         if env_state is None:
-            env_state = self.init(self.cfg.seed if seed is None else seed)
-            env_state = env_state.replace(episode_step=torch.randint(
-                0, env.max_episode_length, env_state.episode_step.shape,
-                generator=env.generator, device=self.device))
+            env_state = self.init(self.cfg.seed if seed is None else seed,
+                                  random_episode_step=True)
         # initial observations: one zero-action step
         env_state, out0 = env.step(env_state, torch.zeros(
             env.num_envs, env.num_actions, device=self.device))
@@ -263,7 +309,8 @@ class OnPolicyRunner:
         carry = (self.network.initialize_carry(env.num_envs)
                  if self.recurrent else None)
         t_start = time.time()
-        steps_per_iter = self.cfg.runner.num_steps_per_env * env.num_envs
+        steps_per_iter = (self.cfg.runner.num_steps_per_env
+                          * env.global_num_envs)
         save_interval = self.cfg.runner.save_interval
         for it in range(num_iterations):
             if self.recurrent:
@@ -274,7 +321,8 @@ class OnPolicyRunner:
                 env_state, obs, priv_obs, metrics = self.train_iteration(
                     env_state, obs, priv_obs)
             self.current_iteration += 1
-            if it % log_every == 0 or it == num_iterations - 1:
+            if self.is_main and (it % log_every == 0
+                                 or it == num_iterations - 1):
                 m = {k: v.cpu() for k, v in metrics.items()}
                 elapsed = time.time() - t_start
                 self._log(self.current_iteration, m,
@@ -333,24 +381,34 @@ class OnPolicyRunner:
 
     def save(self, env_state: EnvState) -> str:
         """`<log_dir>/model_<iteration>.pt`: the PPO state, the iteration
-        and the env state."""
-        os.makedirs(self.log_dir, exist_ok=True)
+        and the env state.  With a mesh a collective: the env state is
+        gathered from every rank and rank 0 alone writes the global batch;
+        every rank returns the path."""
+        env_state = self.env.gather_state(env_state)
         path = os.path.join(self.log_dir,
                             f"model_{self.current_iteration}.pt")
-        torch.save({"train_state": self.ppo.state_dict(),
-                    "iteration": self.current_iteration,
-                    "env_state": _state_to_dict(env_state)}, path)
+        if self.is_main:
+            os.makedirs(self.log_dir, exist_ok=True)
+            torch.save({"train_state": self.ppo.state_dict(),
+                        "iteration": self.current_iteration,
+                        "env_state": _state_to_dict(env_state)}, path)
         return path
 
     def load(self, path: str, env_state: EnvState) -> EnvState:
         """Restore the PPO state and iteration from `path`.  Returns the
         saved env state where every saved field has the shape of the one in
         `env_state`; otherwise (another env batch, such as evaluating a
-        4096-env run with 50 envs) `env_state` itself."""
+        4096-env run with 50 envs) `env_state` itself.  With a mesh a saved
+        global batch gives each rank its rows, so a checkpoint loads on any
+        number of ranks that divides its batch."""
         raw = torch.load(path, map_location=self.device, weights_only=True)
         self.ppo.load_state_dict(raw["train_state"])
         self.current_iteration = int(raw["iteration"])
         saved = raw["env_state"]
+        if self.mesh is not None:
+            saved = shard_batch(saved, self.mesh,
+                                batch=self.env.global_num_envs,
+                                replicate=EnvState.REPLICATED)
         fresh = _state_to_dict(env_state)
         if all(k in fresh and _same_shapes(fresh[k], v)
                for k, v in saved.items()):

@@ -41,9 +41,10 @@ def make_env(name: str, num_envs: Optional[int] = None, device=None,
 
 def make_alg_runner(env: LeggedEnv, name: str, log_dir: Optional[str] = None,
                     train_cfg: Optional[TrainCfg] = None,
-                    max_iterations: Optional[int] = None):
+                    max_iterations: Optional[int] = None, mesh=None):
     """The on-policy runner of task `name` on the env's device, with the
-    registered training config unless `train_cfg` is given."""
+    registered training config unless `train_cfg` is given; data-parallel
+    over `mesh` (parallel/mesh.py) when given."""
     from pointfoot_tpu_torch.rl.runner import OnPolicyRunner
 
     if train_cfg is None:
@@ -51,4 +52,4 @@ def make_alg_runner(env: LeggedEnv, name: str, log_dir: Optional[str] = None,
     if max_iterations is not None:
         train_cfg = replace(train_cfg, runner=replace(
             train_cfg.runner, max_iterations=max_iterations))
-    return OnPolicyRunner(env, train_cfg, log_dir=log_dir)
+    return OnPolicyRunner(env, train_cfg, log_dir=log_dir, mesh=mesh)
