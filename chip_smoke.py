@@ -43,7 +43,7 @@ fused rollout kernels on its shard).
    plain version by CUDA events, and the least time the card could take (bytes over 3.35 TB/s or
    float32 operations over 67 TFLOP/s); the Cholesky kernel also beside
    torch.linalg.cholesky + torch.cholesky_solve;
-4. the PointFoot rollout at full width: 200 policy steps with the launch
+4. the PointFoot rollout at full width: 100 policy steps with the launch
    counters reset just before and read just after (1x and 4x the step
    count), env-steps/s, a per-layer breakdown and the regression probe
    (level 0, command vx 0.4 m/s, 6 s): falls <= num_envs and mean forward
@@ -74,7 +74,7 @@ fused rollout kernels on its shard).
 10. PPO training of pointfoot_rough on procedural terrain at 4096 envs
    through rl/runner.OnPolicyRunner.train_iteration, fresh from seed 0,
    the registry's PPO config (512/256/128, 24 steps an iteration, 5 x 4
-   minibatches): two warm iterations, then three timed ones, env-steps/s
+   minibatches): two warm iterations, then two timed ones, env-steps/s
    including the update and the seconds of rollout and update of each;
    the launch counters around one iteration (rollout substep kernel 4 x 24,
    sphere-xyz FK 24, the other kernels 0); after every iteration finite
@@ -184,6 +184,30 @@ fused rollout kernels on its shard).
    one rank on nccl, a DP iteration at 4096 envs against the runner
    without a mesh from the same state (rollouts bit for bit, the update
    as in (e)).
+18. the last modules: `[env-phases]` bench.main_env_phases at 4096
+   procedural envs (one timed 24-step iteration a variant after the warm
+   iteration and at most 4 settle ones; reported, not gated: one
+   iteration cannot resolve a few ms of a ~180 ms step; each variant's
+   launches: kernel 1 four times and
+   kernel 2 once a step, no other kernel); `[profile]`
+   utils.profiling.trace around 3 procedural env steps, the device's busy
+   share of the traced window, its top operations and longest idle gaps
+   from the trace's device events (the trace kept gzipped under
+   smoke_out/phase18/), and utils.profiling.timed of the step beside
+   its CUDA-event time; `[play]` play.run of the flagship (procedural),
+   the registered pointfoot_rough (table) and pointfoot_flat (plane) at
+   4096 envs with the command pinned at 0.4 m/s: the logger's keys finite,
+   command_x 0.4 in every step, print_rewards, the launches, and the
+   flagship's --export; `[tlog]` TrajectoryRecorder logs of the
+   flagship's observations, env 0 and all 4096 rows for 50 steps, read
+   back bit for bit, none dropped, shape EQUAL on a log against itself,
+   and a second play from the same seed compared (reported, not gated);
+   `[native-policy]` the exported ONNX through runtime.NativePolicy on
+   the card's observations against the torch actor on the card, within
+   2e-5; `[test-env]` the test_env CLI for all seven tasks at 10 envs, 50
+   steps each, one process a task; `[gait-diag]` the gait_diag CLI at 4096
+   scenarios, vx 0.4, 25 ticks: kernel 6 once and kernels 3 and 4 four
+   times a tick, the falls.
 
 The line before the last holds the kernels' JSON record, the one before it
 the card's name and power limit, and the last line is the JSON
@@ -196,6 +220,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import datetime
+import gzip
 import json
 import os
 import shutil
@@ -210,7 +235,7 @@ import torch
 import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from pointfoot_tpu_torch import bench
+from pointfoot_tpu_torch import bench, gait_diag, play, shape
 from pointfoot_tpu_torch.kernel_times import (A1_QDEF, dense_problem,
                                               graph_ms, substep_inputs)
 from pointfoot_tpu_torch.kernel_times import events_ms as cuda_ms
@@ -234,6 +259,8 @@ from pointfoot_tpu_torch.physics.contact import query_surface
 from pointfoot_tpu_torch.physics.model import PhysicsParams, PhysicsState
 from pointfoot_tpu_torch.rl.networks import map_carry
 from pointfoot_tpu_torch.rl.ppo import PPO, Transition, compute_gae
+from pointfoot_tpu_torch.runtime import (NativePolicy, TrajectoryRecorder,
+                                         read_log)
 from pointfoot_tpu_torch.sysid import (GANTrainer, IdentifierTrainer,
                                        WGANTrainer, chunk_windows,
                                        simulate_trajectory)
@@ -242,14 +269,14 @@ from pointfoot_tpu_torch.sysid.gan import (FRIC_RANGE, PARAM_RANGE, _bce,
                                            grads_of)
 from pointfoot_tpu_torch.sysid.wgan import gradient_penalty
 from pointfoot_tpu_torch.terrain.analytic import FLAT
-from pointfoot_tpu_torch.utils import policy_eval
-from pointfoot_tpu_torch.utils.registry import (get_cfgs, make_alg_runner,
-                                                make_env)
+from pointfoot_tpu_torch.utils import policy_eval, profiling
+from pointfoot_tpu_torch.utils.registry import (TASKS, get_cfgs,
+                                                make_alg_runner, make_env)
 
 NUM_ENVS = 4096
 CHOL_ENVS = 2048
 WARM_STEPS = 20
-ROLLOUT_STEPS = 200  # 500 before phase 15 needed the time
+ROLLOUT_STEPS = 100  # 500 before phase 15, 200 before phase 18
 ANYMAL_STEPS = 100  # 200 before phase 15 needed the time
 CHOL_STEPS = 25
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -296,7 +323,7 @@ SRB_GATE_CFG = dict(height_target=0.28, w_vel=1.0, w_height=10.0,
                     w_orient=5.0, w_omega=0.5, w_force_normal=1e-3,
                     w_force_tangent=2e-2, kp_swing=20.0, kd_swing=0.5)
 SRB_GATE_TICKS, SRB_GATE_SUBSTEPS, SRB_GATE_DT = 50, 4, 0.005
-TRAIN_WARM, TRAIN_TIMED = 2, 3  # iterations
+TRAIN_WARM, TRAIN_TIMED = 2, 2  # iterations (3 timed before phase 18)
 FLAT_TRAIN_WARM, FLAT_TRAIN_TIMED = 1, 2  # pointfoot_flat (phase 13)
 RNN_TRAIN_WARM, RNN_TRAIN_TIMED = 1, 2  # recurrent pointfoot_rough (14)
 RNN_FLAT_STEPS = 50  # steps of the recurrent flat inference policy
@@ -305,7 +332,7 @@ ANYMAL_FLAT_STEPS = 20
 TABLE_STEPS = 100
 ANYMAL_TABLE_STEPS = 20
 # bench.main_env inside the smoke run: iterations of 24 steps a repetition
-BENCH_ITERS, BENCH_REPS = 1, 2
+BENCH_ITERS, BENCH_REPS = 1, 1  # 2 repetitions before phase 18
 MODEL_100000 = (policy_eval.WEIGHTS
                 + "/pointfoot_rough_model_100000_actor.npz")
 TRAIN_CHECK_ENVS = 256  # envs of a card rollout whose update the CPU redoes
@@ -318,7 +345,7 @@ GAIT_TICKS, GAIT_VX_FROM = 250, 100
 GAIT_FALL_Z, GAIT_MAX_FALL_SHARE = 0.40, 1 / 8
 # the A1 trot of tests/test_gait.py:395-437: 5 s at 200 Hz
 A1_TICKS, A1_VX_FROM = 1000, 400
-ILQR_CHUNK, ILQR_ITERS = 1024, 2  # bench --mode mpc_ilqr
+ILQR_CHUNK, ILQR_ITERS = 1024, 1  # bench --mode mpc_ilqr (2 before 18)
 # [ilqr-check]: the card's solve against the CPU's, one chunk of perturbed
 # scenarios, so that on the card the rollouts take kernel 5 and the 6144-row
 # line search kernels 4 and 3, as in the bench; horizon 3, where a solve is
@@ -351,7 +378,7 @@ BALANCE_ENVS, BALANCE_TICKS = 64, 10
 # window as long as the rollout.  The "real" windows are simulated at
 # REAL_PARAMS (friction^6, mass, com^3)
 SYSID_BATCH, SYSID_WINDOW, SYSID_WARMUP, SYSID_HIDDEN = 64, 400, 100, 512
-GAN_DEFAULTS, GAN_SMOKE = (400, 100), (50, 12)
+GAN_DEFAULTS, GAN_SMOKE = (400, 100), (25, 12)  # (50, 12) before phase 18
 SYSID_SEED, SYSID_CMD = 11, (0.5, 0.0, 0.0)
 REAL_PARAMS = (0.02, 0.12, 0.05, 0.18, 0.08, 0.15, 0.8, 0.01, -0.01, 0.015)
 FLAT_EXPORTED = "logs/pointfoot_flat/tpu_run7/exported/policy.pt"
@@ -375,6 +402,26 @@ DP_TIMEOUT_S = 300.0
 # a moment of the DP update may lie this many times as far from one
 # process's as that process's own update of observations one ulp away
 WITNESS_FACTOR = 4.0
+# phase 18, the last modules: bench --mode env_phases cut to one timed
+# iteration of its 24 steps and one repetition, the settle loop kept but
+# stopped after ENV_PHASES_SETTLE_MAX iterations (the bench's 8 took up to
+# 43 s a variant);
+# PROFILE_STEPS procedural env steps under utils.profiling.trace; play at
+# each task's default width for PLAY_STEPS steps with the command PLAY_CMD
+# pinned; TLOG_STEPS steps of the flagship logged; test_env for
+# TEST_ENV_EPISODES x the episode length (50 steps); gait_diag for
+# GAIT_DIAG_TICKS ticks at vx GAIT_VX; NativePolicy against the torch
+# actor at the tolerance of tests/test_runtime.py:81
+ENV_PHASES_ITERS, ENV_PHASES_SETTLE_MAX = 1, 4
+PROFILE_STEPS, PROFILE_TOP = 3, 5
+PLAY_STEPS, PLAY_CMD = 20, (0.4, 0.0, 0.0)
+TLOG_STEPS = 50
+TEST_ENV_EPISODES = 0.05
+TEST_ENV_TIMEOUT_S = 300.0
+GAIT_DIAG_TICKS = 25
+NATIVE_POLICY_TOL = 2e-5
+PHASE18_DIR = os.path.join("smoke_out", "phase18")  # gitignored
+DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")  # trace categories
 # tests/test_torch_ppo.py: losses, KL and gradients (rtol, and atol scaled
 # by the tensor's largest entry for gradients)
 PPO_RTOL, PPO_ATOL = 1e-5, 1e-6
@@ -3043,6 +3090,339 @@ def dp_nccl_world1() -> dict:
     return l1
 
 
+# ------------------------------------------------- 18. the last modules
+
+def env_phases_phase() -> dict:
+    """[env-phases]: bench.main_env_phases at NUM_ENVS procedural envs,
+    at most ENV_PHASES_SETTLE_MAX settle iterations a variant, each
+    variant's launches counted around its own measurement: kernel 1 four
+    times and kernel 2 once a step, no other kernel."""
+    inner = bench.bench_env
+    per_variant = []
+
+    def counted(*args, **kwargs):
+        torch.cuda.synchronize()
+        reset_counts()
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        per_variant.append((out[2], read_counts()))
+        return out
+
+    settle_max = bench.SETTLE_MAX
+    bench.bench_env, bench.SETTLE_MAX = counted, ENV_PHASES_SETTLE_MAX
+    try:
+        rec = bench.main_env_phases("pointfoot_rough", NUM_ENVS,
+                                    iters=ENV_PHASES_ITERS)
+    finally:
+        bench.bench_env, bench.SETTLE_MAX = inner, settle_max
+    total = {}
+    for (name, ablate), (settles, counts) in zip(
+            bench.PHASE_VARIANTS.items(), per_variant):
+        # one warm iteration, the settle loop's, the timed ones
+        steps = bench.STEPS_PER_ITER * (1 + settles + ENV_PHASES_ITERS)
+        expect_counts(counts, rollout_substep=4 * steps,
+                      fk_from_state=steps)
+        total = add_counts(total, counts)
+        sps = rec["phases"][name]
+        log(f"[env-phases] {name} (ablated {list(ablate)}): {sps:.1f} "
+            f"env-steps/s, {NUM_ENVS / sps * 1e6:.1f} us a step, "
+            f"{rec['phase_gain_us_per_step'].get(name, 0.0)} us a step "
+            f"below the full step; {steps} steps, launches {counts}")
+    return total
+
+
+def device_timeline(trace_dir: str) -> dict:
+    """Busy share, top operations and idle gaps of the device events of
+    the newest Chrome trace in `trace_dir` (utils.profiling.trace)."""
+    files = sorted((f for f in os.listdir(trace_dir)
+                    if f.endswith(".pt.trace.json")),
+                   key=lambda f: os.path.getmtime(os.path.join(trace_dir, f)))
+    with open(os.path.join(trace_dir, files[-1])) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                  e["name"]) for e in events
+                 if e.get("cat") in DEVICE_EVENTS)
+    if not dev:
+        raise AssertionError(f"[profile] no device events in {files[-1]}")
+    t0 = min(float(e["ts"]) for e in events)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    busy, gaps, end = 0.0, [], None
+    for a, b, _ in dev:
+        if end is None or a > end:
+            if end is not None:
+                gaps.append((a - end, end))
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    by_name = {}
+    for a, b, name in dev:
+        tot, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (tot + b - a, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:PROFILE_TOP]
+    return dict(window_us=t1 - t0, busy_us=busy, events=len(dev),
+                busy_share=busy / (t1 - t0), top=top,
+                gaps=sorted(gaps, reverse=True)[:PROFILE_TOP],
+                t0=t0, file=files[-1])
+
+
+def profile_phase(env, policy):
+    """[profile]: utils.profiling.trace around PROFILE_STEPS procedural
+    env steps at NUM_ENVS envs; the device's busy share of the traced
+    window, its top operations and longest idle gaps; utils.profiling.
+    timed of the same step beside its CUDA-event time."""
+    state, act = warm_with_push(env, policy, seed=5)
+    trace_dir = os.path.join(PHASE18_DIR, "profile")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    with profiling.trace(trace_dir):
+        s = state
+        for _ in range(PROFILE_STEPS):
+            s, o = env.step(s, act)
+        torch.cuda.synchronize()
+    tl = device_timeline(trace_dir)
+    log(f"[profile] procedural pointfoot_rough, {NUM_ENVS} envs, "
+        f"{PROFILE_STEPS} env steps traced ({tl['file']}): device busy "
+        f"{tl['busy_us'] / 1e3:.3f} of {tl['window_us'] / 1e3:.3f} ms, "
+        f"share {tl['busy_share']:.4f}, {tl['events']} device events")
+    for name, (tot, n) in tl["top"]:
+        log(f"[profile]   top device op {tot / 1e3:.3f} ms in {n} x "
+            f"{name[:90]}")
+    for gap, at in tl["gaps"]:
+        log(f"[profile]   idle gap {gap / 1e3:.3f} ms at "
+            f"{(at - tl['t0']) / 1e3:.3f} ms")
+    raw = os.path.join(trace_dir, tl["file"])
+    with open(raw, "rb") as f, gzip.open(raw + ".gz", "wb",
+                                         compresslevel=1) as g:
+        shutil.copyfileobj(f, g)
+    os.remove(raw)
+    t_timed = profiling.timed(env.step, state, act, iters=3, warmup=1)
+    t_events = cuda_ms(lambda: env.step(state, act), 3)
+    log(f"[profile] env.step: utils.profiling.timed {t_timed * 1e3:.3f} "
+        f"ms, CUDA events {t_events:.3f} ms ([layers] env.step)")
+    return tl
+
+
+def capture_stdout(fn):
+    """(fn's result, the lines it printed)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue().splitlines()
+
+
+def play_phase(tmp: str) -> str:
+    """[play]: play.run of the flagship (procedural), the registered
+    pointfoot_rough (table) and pointfoot_flat (plane) at the CLI's
+    width, PLAY_CMD pinned; the flagship from a copy of its committed
+    actor with --export.  Returns the exported ONNX file."""
+    actor = os.path.join(tmp, "flagship", "actor.npz")
+    os.makedirs(os.path.dirname(actor))
+    shutil.copy(policy_eval.FLAGSHIP_ACTOR, actor)
+    for task, label, fk in ((None, "flagship (procedural)", 1),
+                            ("pointfoot_rough", "pointfoot_rough (table)",
+                             1),
+                            ("pointfoot_flat", "pointfoot_flat (plane)",
+                             0)):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        (logger, rec), printed = capture_stdout(lambda: play.run(
+            task, actor if task is None else None, NUM_ENVS, PLAY_STEPS,
+            cmd=PLAY_CMD, export=task is None))
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        steps = PLAY_STEPS + 1  # and the zero-action step
+        expect_counts(launches, rollout_substep=4 * steps,
+                      fk_from_state=fk * steps)
+        log_ = logger.state_log
+        for k, v in log_.items():
+            if not np.isfinite(np.asarray(v, np.float64)).all():
+                raise AssertionError(f"[play] {label}: non-finite {k}")
+        if len(log_["command_x"]) != PLAY_STEPS or any(
+                v != np.float32(PLAY_CMD[0]) for v in log_["command_x"]):
+            raise AssertionError(f"[play] {label}: command_x not pinned at "
+                                 f"{PLAY_CMD[0]}: {log_['command_x']}")
+        _, rewards = capture_stdout(logger.print_rewards)
+        log(f"[play] {label}, {NUM_ENVS} envs, {PLAY_STEPS} steps in "
+            f"{wall:.2f} s: {json.dumps(rec)}; {len(log_)} logged keys "
+            f"finite, command_x {PLAY_CMD[0]} in every step; "
+            f"print_rewards: {rewards[-1]}; launches {launches}; "
+            f"{printed[-1] if printed else ''}")
+    onnx_path = os.path.join(tmp, "flagship", "exported", "policy.onnx")
+    if not os.path.exists(onnx_path):
+        raise AssertionError(f"[play] --export wrote no {onnx_path}")
+    return onnx_path
+
+
+def tlog_play(env, policy, path_env0: str, path_all: str):
+    """One flagship play of TLOG_STEPS steps from the same seed (level 0,
+    vx 0.4): env 0's observations and all rows logged; returns (the
+    recorders' counts, env 0's rows, all rows, the last observations)."""
+    rows0, rows_all, last = [], [], []
+    rec0 = TrajectoryRecorder(path_env0, env.num_obs)
+    rec_all = TrajectoryRecorder(path_all, env.num_obs,
+                                 capacity=1 << (TLOG_STEPS * NUM_ENVS - 1)
+                                 .bit_length())
+
+    def hook(state, out, action):
+        obs = out.obs.cpu().numpy()
+        rows0.append(obs[0].copy())
+        rows_all.append(obs)
+        rec0.push(obs[0])
+        rec_all.push_batch(obs)
+        last[:] = [out.obs]
+
+    try:
+        policy_eval.eval_config(env, policy, 0, 0.4, secs=TLOG_STEPS * env.dt,
+                                on_step=hook)
+        rec0.flush()
+        rec_all.flush()
+        counts = [(r.written, r.dropped) for r in (rec0, rec_all)]
+    finally:
+        rec0.close()
+        rec_all.close()
+    return counts, np.stack(rows0), np.concatenate(rows_all), last[0]
+
+
+def tlog_phase(tmp: str):
+    """[tlog]: TrajectoryRecorder logs of the flagship's observations, env 0
+    and all rows, read back bit for bit; shape on a log against itself;
+    then a second play from the same seed, and whether the card's rollout
+    repeats (reported, not gated).  Returns the env, its policy and the
+    last observations."""
+    env = policy_eval.make_eval_env("pointfoot_rough", NUM_ENVS,
+                                    policy_eval.FLAGSHIP_PATCH)
+    policy = policy_eval.inference_policy(
+        policy_eval.load_actor(env, "pointfoot_rough"))
+    paths = [os.path.join(tmp, f"{k}.tlog") for k in ("a0", "a", "b0", "b")]
+    counts, rows0, rows_all, obs = tlog_play(env, policy, *paths[:2])
+    want = [(TLOG_STEPS, 0), (TLOG_STEPS * NUM_ENVS, 0)]
+    if counts != want:
+        raise AssertionError(f"[tlog] (written, dropped) {counts} != {want}")
+    for path, rows in ((paths[0], rows0), (paths[1], rows_all)):
+        back, size = read_log(path)
+        if size != env.num_obs or not np.array_equal(back, rows):
+            raise AssertionError(f"[tlog] {path} does not read back")
+    _, same = capture_stdout(lambda: shape.main([paths[0], paths[0]]))
+    if not same[-1].startswith("EQUAL"):
+        raise AssertionError(f"[tlog] shape of a log against itself: {same}")
+    log(f"[tlog] flagship, {NUM_ENVS} envs, {TLOG_STEPS} steps: env 0 "
+        f"({counts[0][0]} written, {counts[0][1]} dropped) and all rows "
+        f"({counts[1][0]} written, {counts[1][1]} dropped) read back bit "
+        f"for bit; shape on env 0's log against itself: {same[-1]}")
+    _, rows0_b, rows_all_b, _ = tlog_play(env, policy, *paths[2:])
+    _, verdict = capture_stdout(lambda: shape.main([paths[0], paths[2]]))
+    differ = np.nonzero((rows_all != rows_all_b).any(axis=1))[0]
+    first = ("none" if differ.size == 0 else
+             f"step {differ[0] // NUM_ENVS} (env {differ[0] % NUM_ENVS}), "
+             f"{np.unique(differ // NUM_ENVS).size} of {TLOG_STEPS} steps "
+             f"differ")
+    log(f"[tlog] determinism, two plays from seed 11: env 0: "
+        f"{verdict[-1]}; all {NUM_ENVS} rows bit-identical: "
+        f"{differ.size == 0}, first difference: {first}")
+    return env, obs
+
+
+def native_policy_phase(onnx_path: str, env, obs):
+    """[native-policy]: the exported flagship actor through the C++ runner
+    on the card's observations of NUM_ENVS envs, copied to the host,
+    against the torch actor on the card."""
+    net = policy_eval.load_actor(env, "pointfoot_rough")
+    with torch.no_grad():
+        want = net.act_mean(obs).cpu().numpy()
+    pol = NativePolicy(onnx_path)
+    t0 = time.perf_counter()
+    got = pol(obs.cpu().numpy())
+    wall = time.perf_counter() - t0
+    pol.close()
+    err = float(np.abs(got - want).max())
+    log(f"[native-policy] {onnx_path}: {got.shape[0]} observations in "
+        f"{wall * 1e3:.1f} ms on the host, max |err| {err:.3g} against the "
+        f"torch actor on the card (tolerance {NATIVE_POLICY_TOL}; actions "
+        f"up to {float(np.abs(want).max()):.3g})")
+    if not err <= NATIVE_POLICY_TOL:
+        raise AssertionError(f"[native-policy] max |err| {err}")
+
+
+def test_env_phase():
+    """[test-env]: `python -m pointfoot_tpu_torch.test_env` for every
+    registered task at its 10 envs for TEST_ENV_EPISODES x the episode
+    length, one process a task, all at once (each is host-bound)."""
+    t0 = time.perf_counter()
+    procs = {task: subprocess.Popen(
+        [sys.executable, "-m", "pointfoot_tpu_torch.test_env", "--task",
+         task, "--episodes", str(TEST_ENV_EPISODES)],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for task in TASKS}
+    try:
+        outs = {task: p.communicate(timeout=TEST_ENV_TIMEOUT_S)[0]
+                for task, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    steps = int(TEST_ENV_EPISODES * 1000)
+    for task, p in procs.items():
+        lines = outs[task].strip().splitlines()
+        if p.returncode != 0 or lines[-1:] != ["Done"]:
+            raise AssertionError(f"[test-env] {task}: exit {p.returncode}: "
+                                 f"{lines[-5:]}")
+    log(f"[test-env] {len(procs)} tasks ({', '.join(procs)}), {steps} "
+        f"zero-action steps of 10 envs each, one process a task on the "
+        f"card, in {wall:.2f} s: finite rewards, Done")
+
+
+def gait_diag_phase() -> dict:
+    """[gait-diag]: gait_diag.main at NUM_ENVS scenarios, vx GAIT_VX,
+    GAIT_DIAG_TICKS ticks: kernel 6 once and kernels 3 and 4 four times a
+    tick."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rep, printed = capture_stdout(lambda: gait_diag.main(
+        ["--b", str(NUM_ENVS), "--vx", str(GAIT_VX), "--ticks",
+         str(GAIT_DIAG_TICKS)]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    expect_counts(launches, srb_lqr=GAIT_DIAG_TICKS, **step_batched_launches(
+        NUM_ENVS, 4 * GAIT_DIAG_TICKS))
+    falls = next(p for p in printed if p.startswith("falls: "))
+    log(f"[gait-diag] PointFoot, {NUM_ENVS} scenarios, vx {GAIT_VX}, "
+        f"{rep['ticks']} ticks in {wall:.2f} s (report included): {falls}; "
+        f"launches {launches}")
+    for line in printed:
+        if line.startswith("  ") and ": t<1s mean" in line:
+            log(f"[gait-diag] {line.strip()}")
+    return launches
+
+
+def last_modules_phase(pf_env, policy) -> dict:
+    """Phase 18; returns the launches of [env-phases] and [gait-diag]."""
+    os.makedirs(PHASE18_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p18_")
+    try:
+        env_phases = env_phases_phase()
+        profile_phase(pf_env, policy)
+        onnx_path = play_phase(tmp)
+        env, obs = tlog_phase(tmp)
+        native_policy_phase(onnx_path, env, obs)
+        del env, obs
+        test_env_phase()
+        gait = gait_diag_phase()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(env_phases=env_phases, gait_diag=gait)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3107,6 +3487,12 @@ def main() -> int:
     torch.cuda.empty_cache()  # the ranks of phase 17 share the card
     dp = dp_phase()
     log(f"[t] data parallelism done at {time.perf_counter() - t_start:.1f} s")
+    last = last_modules_phase(pf_env, policy)
+    log(f"[t] the last modules done at {time.perf_counter() - t_start:.1f} s")
+    p18 = {k: dict(env_phases_launches=last["env_phases"].get(k, 0))
+           for k in ("rollout_substep", "fk_from_state")}
+    p18.update({k: dict(gait_diag_launches=last["gait_diag"].get(k, 0))
+                for k in ("substep", "fk_contact_xy", "srb_lqr")})
     phase15 = {k: dict(gait_launches=gait["launches"].get(k, 0),
                        ilqr_launches=ilqr_run["launches"][k])
                for k in ("substep", "fk_contact_xy", "chol_solve", "srb_lqr")}
@@ -3123,22 +3509,22 @@ def main() -> int:
              sysid_max_abs_err=sysid["err"],
              dp_launches=[c["rollout_substep"] for c in dp["launches"]],
              dp_nccl_launches=dp["nccl"]["rollout_substep"],
-             dp_max_abs_err=dp["err"]),
+             dp_max_abs_err=dp["err"], **p18["rollout_substep"]),
         dict(kernel_record("fk_from_state_kernel", SUBSTEP_SRC,
                            "pointfoot_tpu/ops/pallas/substep.py:328",
                            pf_launches["fk_from_state"], **fk),
              rnn_train_launches=rnn_launches["fk_from_state"],
              dp_launches=[c["fk_from_state"] for c in dp["launches"]],
              dp_nccl_launches=dp["nccl"]["fk_from_state"],
-             dp_max_abs_err=dp["err"]),
+             dp_max_abs_err=dp["err"], **p18["fk_from_state"]),
         dict(kernel_record("substep_kernel", SUBSTEP_SRC,
                            "pointfoot_tpu/ops/pallas/substep.py:65",
                            any_launches["substep"], **sub),
-             **phase15["substep"]),
+             **phase15["substep"], **p18["substep"]),
         dict(kernel_record("fk_contact_xy_kernel", SUBSTEP_SRC,
                            "pointfoot_tpu/ops/pallas/substep.py:201",
                            any_launches["fk_contact_xy"], **fkxy),
-             **phase15["fk_contact_xy"]),
+             **phase15["fk_contact_xy"], **p18["fk_contact_xy"]),
         dict(kernel_record("chol_solve_kernel", CHOL_SRC,
                            "pointfoot_tpu/ops/pallas/cholesky.py:35",
                            chol_launches["chol_solve"], **chol),
@@ -3146,7 +3532,8 @@ def main() -> int:
         dict(kernel_record("srb_lqr_kernel", RICCATI_SRC,
                            "pointfoot_tpu/ops/pallas/riccati.py:32",
                            mpc_launches["srb_lqr"], **lqr),
-             **phase15["srb_lqr"], gait_max_abs_err=gait["err"]),
+             **phase15["srb_lqr"], gait_max_abs_err=gait["err"],
+             **p18["srb_lqr"]),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

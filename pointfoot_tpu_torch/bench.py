@@ -57,14 +57,32 @@ from the same state with the warm start the previous plan left, as the
 JAX bench times them; vs_baseline = solves/s over real time, num_envs x
 50 Hz.
 
-Runs on the GPU unless --device names another.  The `env_phases` mode of
-the JAX package's bench.py is not ported yet.
+`--mode env_phases`: the cost of each post-physics phase of the
+procedural pointfoot_rough step, by ablation (LeggedEnv._ablate): `--mode
+env`'s procedural measurement (one repetition of `--iters` iterations,
+default 10) of the full step and of five variants with phases replaced by
+zeros: `physics_only` (every post-physics phase), `no_reward`,
+`no_obs_heights` (observations and height scan), `no_reset` and
+`no_cmd_push` (command resampling and pushes).  The record's `phases`
+gives each variant's env-steps/s, `phase_gain_us_per_step` the µs a step
+each variant saves against the full step; vs_baseline = the full step's
+env-steps/s over real time, num_envs x 50 Hz.
+
+Before it touches the device, `main` takes the bench lock
+(utils/benchlock.py; BENCH_QUIESCE_TIMEOUT_S, default 300 s): a trainer
+of either package that runs `learn` drains its device work and pauses
+until the benchmark ends.  Every record's conditions say under `trainer`
+what the lock found: "no_trainer", "trainer_paused" or "timeout_no_ack"
+("unknown" when a mode's function is called without `main`).
+
+Runs on the GPU unless --device names another.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import time
 
@@ -78,16 +96,27 @@ from pointfoot_tpu_torch.mpc.srb import SRBConfig, SRBController
 from pointfoot_tpu_torch.physics.assets import get_model
 from pointfoot_tpu_torch.physics.model import PhysicsParams, PhysicsState
 from pointfoot_tpu_torch.terrain.analytic import FLAT
+from pointfoot_tpu_torch.utils import benchlock
 from pointfoot_tpu_torch.utils.policy_eval import FLAGSHIP_PATCH
 from pointfoot_tpu_torch.utils.registry import make_alg_runner, make_env
 
 MODES = ("env", "env_phases", "mpc", "mpc_ilqr", "actuator_net", "train")
 SOLVERS = ("kernel", "plain")
-ITERS = {"env": 20, "actuator_net": 20, "mpc": 20, "mpc_ilqr": 3,
-         "train": 1}  # --iters
+ITERS = {"env": 20, "env_phases": 10, "actuator_net": 20, "mpc": 20,
+         "mpc_ilqr": 3, "train": 1}  # --iters
 ENV_TASKS = {"env": "pointfoot_rough", "actuator_net": "anymal_c_rough"}
 STEPS_PER_ITER = 24
 SETTLE_MAX, SETTLE_AGREE = 8, 0.15
+# env_phases: each variant's ablated phases (LeggedEnv._ablate)
+PHASES = ("reward", "obs", "heights", "reset", "commands", "push")
+PHASE_VARIANTS = {
+    "full": (),
+    "physics_only": PHASES,
+    "no_reward": ("reward",),
+    "no_obs_heights": ("obs", "heights"),
+    "no_reset": ("reset",),
+    "no_cmd_push": ("commands", "push"),
+}
 
 
 def card_line(device: torch.device) -> str:
@@ -121,7 +150,8 @@ def _sync(device: torch.device):
 
 
 def main_mpc(num_envs: int = 4096, iters: int = 20, reps: int = 3,
-             solver: str = "kernel", device=None) -> dict:
+             solver: str = "kernel", device=None,
+             trainer: str = "unknown") -> dict:
     """Time the tick and return (and print) the benchmark's record."""
     if solver not in SOLVERS:
         raise ValueError(f"solver must be one of {SOLVERS}, got {solver!r}")
@@ -151,6 +181,7 @@ def main_mpc(num_envs: int = 4096, iters: int = 20, reps: int = 3,
                        "horizon": ctrl.cfg.horizon,
                        "iters": iters,
                        "reps_solves_per_sec": [round(r, 1) for r in rates],
+                       "trainer": trainer,
                        "card": card_line(device)},
     }
     print(json.dumps(record), flush=True)
@@ -172,7 +203,7 @@ def make_mpc_ilqr(num_envs: int, device: torch.device, chunk: int = 1024):
 
 
 def main_mpc_ilqr(num_envs: int = 4096, iters: int = 3, chunk: int = 1024,
-                  device=None) -> dict:
+                  device=None, trainer: str = "unknown") -> dict:
     """Time full-model iLQR plans and return (and print) the record."""
     device = resolve_device(device)
     chunk = min(chunk, num_envs)
@@ -197,6 +228,7 @@ def main_mpc_ilqr(num_envs: int = 4096, iters: int = 3, chunk: int = 1024,
                        "iterations": ctrl.cfg.iterations,
                        "chunk": chunk, "reps": iters,
                        "s_per_plan": round(dt, 4),
+                       "trainer": trainer,
                        "card": card_line(device)},
     }
     print(json.dumps(record), flush=True)
@@ -204,11 +236,13 @@ def main_mpc_ilqr(num_envs: int = 4096, iters: int = 3, chunk: int = 1024,
 
 
 def bench_env(task: str, procedural: bool, num_envs: int, iters: int,
-              reps: int, steps: int, device: torch.device):
-    """Env-steps/s of `task` on one terrain path: (median of the
-    repetitions, the repetitions, warm iterations of the settle loop)."""
+              reps: int, steps: int, device: torch.device, ablate=()):
+    """Env-steps/s of `task` on one terrain path, the phases `ablate`
+    replaced by zeros: (median of the repetitions, the repetitions, warm
+    iterations of the settle loop)."""
     env = make_env(task, num_envs=num_envs, device=device,
                    cfg_patch=dict(terrain=dict(procedural=procedural)))
+    env._ablate = frozenset(ablate)
     state = env.init_state(0)
     g = torch.Generator(device=device).manual_seed(1)
 
@@ -248,7 +282,7 @@ def bench_env(task: str, procedural: bool, num_envs: int, iters: int,
 
 def main_env(task: str = "pointfoot_rough", num_envs: int = 4096,
              iters: int = 20, reps: int = 3, steps: int = STEPS_PER_ITER,
-             device=None) -> dict:
+             device=None, trainer: str = "unknown") -> dict:
     """The procedural headline and the table leg; returns (and prints)
     the benchmark's record."""
     device = resolve_device(device)
@@ -267,6 +301,43 @@ def main_env(task: str = "pointfoot_rough", num_envs: int = 4096,
                        "table_steps_per_sec": round(table_sps, 1),
                        "table_settle_iters": table_settles,
                        "iters": iters, "steps_per_iter": steps,
+                       "trainer": trainer,
+                       "card": card_line(device)},
+    }
+    print(json.dumps(record), flush=True)
+    return record
+
+
+def main_env_phases(task: str = "pointfoot_rough", num_envs: int = 4096,
+                    iters: int = 10, steps: int = STEPS_PER_ITER,
+                    device=None, trainer: str = "unknown") -> dict:
+    """The procedural step's phase costs by ablation; returns (and
+    prints) the benchmark's record."""
+    device = resolve_device(device)
+    phases, settles = {}, {}
+    for name, ablate in PHASE_VARIANTS.items():
+        sps, _, settles[name] = bench_env(task, True, num_envs, iters, 1,
+                                          steps, device, ablate)
+        phases[name] = round(sps, 1)
+    full = phases["full"]
+    # a variant's rate against the full step's: the µs a step its
+    # ablated phases cost
+    gain = {n: round(num_envs * (1.0 / full - 1.0 / v) * 1e6, 1)
+            for n, v in phases.items() if n != "full"}
+    record = {
+        "metric": "env_phase_profile",
+        "value": full,
+        "unit": "steps/s",
+        "vs_baseline": round(full / (num_envs * 50.0), 4),
+        "phases": phases,
+        "phase_gain_us_per_step": gain,
+        "num_envs": num_envs,
+        "conditions": {"task": task, "terrain": "procedural",
+                       "iters": iters, "steps_per_iter": steps,
+                       "settle_iters": settles,
+                       "ablated": {n: list(a)
+                                   for n, a in PHASE_VARIANTS.items()},
+                       "trainer": trainer,
                        "card": card_line(device)},
     }
     print(json.dumps(record), flush=True)
@@ -274,7 +345,7 @@ def main_env(task: str = "pointfoot_rough", num_envs: int = 4096,
 
 
 def main_train(num_envs: int = 4096, iters: int = 1, reps: int = 3,
-               device=None) -> dict:
+               device=None, trainer: str = "unknown") -> dict:
     """Time PPO training iterations and return (and print) the record."""
     device = resolve_device(device)
     task = "pointfoot_rough"
@@ -319,6 +390,7 @@ def main_train(num_envs: int = 4096, iters: int = 1, reps: int = 3,
                        "update_s": round(t2 - t1, 4),
                        "num_steps_per_env":
                            runner.cfg.runner.num_steps_per_env,
+                       "trainer": trainer,
                        "card": card_line(device)},
     }
     print(json.dumps(record), flush=True)
@@ -339,21 +411,30 @@ def main(argv=None) -> dict:
                     help="scenarios an iLQR solve (mpc_ilqr)")
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
-    if args.mode not in ITERS:
-        raise NotImplementedError(
-            f"bench mode '{args.mode}' is not ported yet (ROADMAP §1, "
-            f"\"The rest\": a GPU bench for the other modes of bench.py); "
-            f"--mode {' and --mode '.join(ITERS)} run")
     iters = ITERS[args.mode] if args.iters is None else args.iters
+    trainer = benchlock.quiesce(
+        timeout_s=float(os.environ.get("BENCH_QUIESCE_TIMEOUT_S", "300")))
+    try:
+        return _run_mode(args, iters, trainer)
+    finally:
+        benchlock.release()
+
+
+def _run_mode(args, iters: int, trainer: str) -> dict:
     if args.mode in ENV_TASKS:
         return main_env(ENV_TASKS[args.mode], args.num_envs, iters,
-                        args.reps, args.steps, args.device)
+                        args.reps, args.steps, args.device, trainer)
+    if args.mode == "env_phases":
+        return main_env_phases("pointfoot_rough", args.num_envs, iters,
+                               args.steps, args.device, trainer)
     if args.mode == "train":
-        return main_train(args.num_envs, iters, args.reps, args.device)
+        return main_train(args.num_envs, iters, args.reps, args.device,
+                          trainer)
     if args.mode == "mpc_ilqr":
-        return main_mpc_ilqr(args.num_envs, iters, args.chunk, args.device)
+        return main_mpc_ilqr(args.num_envs, iters, args.chunk, args.device,
+                             trainer)
     return main_mpc(args.num_envs, iters, args.reps, args.solver,
-                    args.device)
+                    args.device, trainer)
 
 
 if __name__ == "__main__":

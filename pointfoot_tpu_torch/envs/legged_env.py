@@ -113,6 +113,14 @@ class LeggedEnv:
         if cfg.obs_style not in ("pointfoot", "legged"):
             raise ValueError(f"unknown obs_style '{cfg.obs_style}'")
         self.cfg = cfg
+        # phase ablation for throughput profiling only (bench.py --mode
+        # env_phases): names of the post-physics phases ("heights",
+        # "commands", "push", "reward", "reset", "obs") whose work `step`
+        # skips, putting zeros of the right shape in its place.  Empty (the
+        # default, and the only value for training and evaluation) leaves
+        # `step` exact.  The zeros are built from shapes alone: eager torch
+        # would otherwise still pay for the phase.
+        self._ablate: frozenset = frozenset()
         dev = self.device
         self.model = get_model(cfg.asset.model_name).to(dev)
         m = self.model
@@ -574,7 +582,11 @@ class LeggedEnv:
         feet = list(self.feet_idx)
         foot_pos = (sphere_pos[:, feet, :] if sphere_pos is not None
                     else self._foot_positions(phys, state.params))
-        measured_heights = self._measured_heights(phys)
+        if "heights" in self._ablate:
+            measured_heights = phys.base_pos.new_zeros(
+                B, self.num_height_points)
+        else:
+            measured_heights = self._measured_heights(phys)
         contact_force = phys.contact_force  # (B, nc, 3)
         feet_force = contact_force[:, feet, :]
 
@@ -603,12 +615,14 @@ class LeggedEnv:
             last_contacts=contact)
 
         # --- commands: resample / heading controller
-        state = self._update_commands(state, phys)
+        if "commands" not in self._ablate:
+            state = self._update_commands(state, phys)
 
         # --- pushes: PointFoot queues a world force for the next substep 0,
         # with F_max = mean base mass * max_push_vel / sim_dt; the
         # LeggedRobot family sets the base velocity
-        if cfg.domain_rand.push_robots and cfg.obs_style == "legged":
+        push = cfg.domain_rand.push_robots and "push" not in self._ablate
+        if push and cfg.obs_style == "legged":
             push_step = (state.common_step % self.push_interval) == 0
             vmax = cfg.domain_rand.max_push_vel_xy
             vel_xy = self._uniform((B, 2), -vmax, vmax)
@@ -616,7 +630,7 @@ class LeggedEnv:
             phys = dataclasses.replace(phys, base_lin_vel=torch.where(
                 push_step, new_lin, phys.base_lin_vel))
             state = state.replace(physics=phys)
-        elif cfg.domain_rand.push_robots:
+        elif push:
             push_step = (state.common_step % self.push_interval) == 0
             mean_mass = torch.mean(self.model.mass[0]
                                    + state.params.added_mass)
@@ -651,7 +665,11 @@ class LeggedEnv:
             first_contact=first_contact, contact_filt=contact_filt,
             feet_air_time=air_for_reward, done=done, time_out=time_out,
             state=state)
-        reward, term_values = self._compute_reward(ctx)
+        if "reward" in self._ablate:
+            reward = phys.base_pos.new_zeros(B)
+            term_values = phys.base_pos.new_zeros(B, len(self.reward_names))
+        else:
+            reward, term_values = self._compute_reward(ctx)
         # quarantined envs must not leak into a training batch
         clip_r = cfg.rewards.clip_reward
         reward = torch.where(bad, 0.0, torch.nan_to_num(reward))
@@ -680,11 +698,17 @@ class LeggedEnv:
         }
 
         # --- masked reset (curricula inside)
-        state = self._reset_envs(state, done)
+        if "reset" not in self._ablate:
+            state = self._reset_envs(state, done)
 
         # --- observations from the post-reset state; the height scan is
         # the one measured before the reset
-        obs, priv = self._compute_observations(state, measured_heights)
+        if "obs" in self._ablate:
+            obs = phys.base_pos.new_zeros(B, self.num_obs)
+            priv = (None if self.num_privileged_obs is None else
+                    phys.base_pos.new_zeros(B, self.num_privileged_obs))
+        else:
+            obs, priv = self._compute_observations(state, measured_heights)
         state = state.replace(last_actions=state.actions,
                               last_qvel=state.physics.qvel)
         return state, StepOutput(obs, priv, reward, done, extras)

@@ -24,7 +24,7 @@ import os
 
 from pointfoot_tpu_torch.device import resolve_device
 from pointfoot_tpu_torch.export import onnx
-from pointfoot_tpu_torch.train import latest_checkpoint
+from pointfoot_tpu_torch.utils.helpers import get_load_path
 from pointfoot_tpu_torch.utils.policy_eval import load_policy_state
 from pointfoot_tpu_torch.utils.registry import get_cfgs
 
@@ -41,7 +41,7 @@ def main(argv=None) -> str:
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     env_cfg, train_cfg = get_cfgs(args.task)
-    path = args.load_run or latest_checkpoint(
+    path = args.load_run or get_load_path(
         os.path.join("logs", train_cfg.runner.experiment_name))
     sd = load_policy_state(path, device)
     obs_dim = env_cfg.env.num_observations

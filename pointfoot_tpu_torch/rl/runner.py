@@ -34,14 +34,20 @@ replicated (the network is broadcast from rank 0 at init) and the PPO
 update reduces across ranks (rl/ppo.py).  Metrics are reduced to their
 global values on every rank; only rank 0 logs, prints and writes, and
 `save` is a collective that gathers the env state so that rank 0 writes
-the global batch.  Not ported yet: the bench-lock handshake of the JAX
-runner.
+the global batch.
+
+`learn` honours the bench lock of utils/benchlock.py (the JAX runner's
+handshake): rank 0 registers as the live trainer, and every rank checks
+the lock before the first iteration and at the top of each, pausing while
+a bench of either package measures; the paused seconds come off the
+steps/s clock.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -60,6 +66,7 @@ from pointfoot_tpu_torch.rl.networks import (ActorCritic,
                                              map_carry,
                                              sample_action)
 from pointfoot_tpu_torch.rl.ppo import PPO, RecurrentPPO, Transition
+from pointfoot_tpu_torch.utils import benchlock
 
 INFO_KEYS = ("episode_rew", "num_resets", "terrain_level", "max_command_x",
              "num_nan_quarantined")
@@ -308,30 +315,44 @@ class OnPolicyRunner:
         obs, priv_obs = out0.obs, out0.privileged_obs
         carry = (self.network.initialize_carry(env.num_envs)
                  if self.recurrent else None)
-        t_start = time.time()
         steps_per_iter = (self.cfg.runner.num_steps_per_env
                           * env.global_num_envs)
         save_interval = self.cfg.runner.save_interval
-        for it in range(num_iterations):
-            if self.recurrent:
-                env_state, obs, priv_obs, carry, metrics = \
-                    self.train_iteration_recurrent(env_state, obs, priv_obs,
-                                                   carry)
-            else:
-                env_state, obs, priv_obs, metrics = self.train_iteration(
-                    env_state, obs, priv_obs)
-            self.current_iteration += 1
-            if self.is_main and (it % log_every == 0
-                                 or it == num_iterations - 1):
-                m = {k: v.cpu() for k, v in metrics.items()}
-                elapsed = time.time() - t_start
-                self._log(self.current_iteration, m,
-                          steps_per_iter * (it + 1) / max(elapsed, 1e-9))
-            if (save_interval > 0 and self.log_dir
-                    and self.current_iteration % save_interval == 0):
+        if self.is_main:
+            benchlock.trainer_register()
+        try:
+            benchlock.trainer_heartbeat()
+            t_start = time.time()
+            drain = None
+            for it in range(num_iterations):
+                t_start += benchlock.trainer_heartbeat(drain=drain)
+                if self.recurrent:
+                    env_state, obs, priv_obs, carry, metrics = \
+                        self.train_iteration_recurrent(env_state, obs,
+                                                       priv_obs, carry)
+                else:
+                    env_state, obs, priv_obs, metrics = \
+                        self.train_iteration(env_state, obs, priv_obs)
+                if self.device.type == "cuda":
+                    # the last metrics are on the card: wait for them
+                    # before acking a bench
+                    drain = functools.partial(torch.cuda.synchronize,
+                                              self.device)
+                self.current_iteration += 1
+                if self.is_main and (it % log_every == 0
+                                     or it == num_iterations - 1):
+                    m = {k: v.cpu() for k, v in metrics.items()}
+                    elapsed = time.time() - t_start
+                    self._log(self.current_iteration, m,
+                              steps_per_iter * (it + 1) / max(elapsed, 1e-9))
+                if (save_interval > 0 and self.log_dir
+                        and self.current_iteration % save_interval == 0):
+                    self.save(env_state)
+            if self.log_dir:
                 self.save(env_state)
-        if self.log_dir:
-            self.save(env_state)
+        finally:
+            if self.is_main:
+                benchlock.trainer_unregister()
         return env_state
 
     # -------------------------------------------------------------- logging

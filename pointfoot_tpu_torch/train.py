@@ -35,7 +35,6 @@ import dataclasses
 import datetime
 import json
 import os
-import re
 import sys
 from dataclasses import replace
 
@@ -43,6 +42,7 @@ import torch.distributed as dist
 
 from pointfoot_tpu_torch.device import resolve_device
 from pointfoot_tpu_torch.parallel.mesh import init_distributed, make_mesh
+from pointfoot_tpu_torch.utils.helpers import get_load_path
 from pointfoot_tpu_torch.utils.registry import (get_cfgs, make_alg_runner,
                                                 make_env)
 
@@ -84,23 +84,6 @@ def parse_override(ov: str, flag: str):
     except (ValueError, SyntaxError):
         val = {"true": True, "false": False}.get(raw.lower(), raw)
     return group, field, val
-
-
-def latest_checkpoint(root: str) -> str:
-    """The newest `model_<it>.pt` of the last run directory under `root`
-    by sort order."""
-    runs = sorted(d for d in os.listdir(root)
-                  if os.path.isdir(os.path.join(root, d))) \
-        if os.path.isdir(root) else []
-    if not runs:
-        raise FileNotFoundError(f"no runs in {root}")
-    run_dir = os.path.join(root, runs[-1])
-    models = [f for f in os.listdir(run_dir)
-              if re.fullmatch(r"model_\d+\.pt", f)]
-    if not models:
-        raise FileNotFoundError(f"no checkpoints in {run_dir}")
-    models.sort(key=lambda f: int(f[len("model_"):-len(".pt")]))
-    return os.path.join(run_dir, models[-1])
 
 
 def start_mesh(args, num_envs: int):
@@ -155,7 +138,7 @@ def _train(args, cfg_patch, train_cfg, mesh, argv):
 
     env_state = None
     if args.resume:
-        path = args.load_run or latest_checkpoint(
+        path = args.load_run or get_load_path(
             os.path.join("logs", train_cfg.runner.experiment_name))
         env_state = runner.load(path, runner.init(seed))
         if runner.is_main:

@@ -90,9 +90,11 @@ def inference_policy(net: ActorCritic) -> Callable:
 
 
 def eval_config(env, policy, level, vx_cmd, wz_cmd=0.0, secs=10.0,
-                seed: int = 11) -> dict:
+                seed: int = 11, vy_cmd: float = 0.0,
+                on_step: Optional[Callable] = None) -> dict:
     """Roll `secs` of closed-loop control at one (level, command); returns
-    falls and the mean base-frame velocities after a 50-step transient."""
+    falls and the mean base-frame velocities after a 50-step transient.
+    `on_step(state, out, action)`, where given, sees every step."""
     num_envs = env.num_envs
     steps = int(secs / env.dt)
     state = env.init_state(seed)
@@ -105,7 +107,7 @@ def eval_config(env, policy, level, vx_cmd, wz_cmd=0.0, secs=10.0,
             physics=dataclasses.replace(
                 state.physics,
                 base_pos=origin + origin.new_tensor(env.cfg.init_state.pos)))
-    cmd = [vx_cmd, 0.0, wz_cmd]
+    cmd = [vx_cmd, vy_cmd, wz_cmd]
     state = env.update_cmd(state, cmd)
     state, out = env.step(state, torch.zeros(num_envs, env.num_actions,
                                              device=env.device))
@@ -118,9 +120,12 @@ def eval_config(env, policy, level, vx_cmd, wz_cmd=0.0, secs=10.0,
     done_now = torch.zeros(num_envs, dtype=torch.bool, device=env.device)
     skip = min(50, steps // 4)
     for t in range(steps):
-        state, out = env.step(state, policy(obs))
+        action = policy(obs)
+        state, out = env.step(state, action)
         state = env.update_cmd(state, cmd)
         obs = out.obs
+        if on_step is not None:
+            on_step(state, out, action)
         falls += out.extras["terminate"].sum()
         done_now = out.done
         episodes += done_now.sum()

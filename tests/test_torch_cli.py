@@ -6,18 +6,27 @@ actuator_net` (the procedural headline and the table leg); `train` on
 pointfoot_flat and on pointfoot_rough with their registered configs, and
 with the flagship continuation's promotion knob; and the sys-ID CLIs (gan,
 identifier, inference: scripts/gan.py, identifier.py, inference.py) at
-tiny sizes."""
+tiny sizes; play (with the JAX CLI's flags), test_env, gait_diag and
+make_gif (scripts/play.py, test_env.py, gait_diag.py, make_gif.py).
+
+The benchmarks take a bench lock of their own, not the repository's, so
+that they never pause a trainer of another test process."""
 
 import functools
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
 import torch
 
-from pointfoot_tpu_torch import (bench, eval_policy, gan, identifier,
-                                 inference, train)
+from PIL import Image
+
+from pointfoot_tpu_torch import (bench, eval_policy, gait_diag, gan,
+                                 identifier, inference, make_gif, play,
+                                 test_env, train)
+from pointfoot_tpu_torch.runtime import NativePolicy
 from pointfoot_tpu_torch.utils import policy_eval
 
 # a 1-iteration run of 2-step rollouts and one-layer networks
@@ -26,6 +35,11 @@ TINY = ["--device", "cpu", "--num_envs", "2", "--max_iterations", "1",
         "runner.num_steps_per_env=2", "--train_override",
         "policy.actor_hidden_dims=(32,)", "--train_override",
         "policy.critic_hidden_dims=(32,)"]
+
+
+@pytest.fixture(autouse=True)
+def private_bench_lock(tmp_path, monkeypatch):
+    monkeypatch.setenv("POINTFOOT_BENCH_LOCK", str(tmp_path / "bench_lock"))
 
 
 def _json_lines(capsys):
@@ -172,3 +186,96 @@ def test_identifier_and_inference_cli(tmp_path, capsys, monkeypatch):
     assert all(np.isfinite(v) for v in out.values())
     printed = capsys.readouterr().out.splitlines()
     assert printed[0].startswith("identifier_0.pt: mse ")
+
+
+# ------------------------------------- play, test_env, gait_diag, make_gif
+
+
+def test_play_cli_with_the_jax_flags(tmp_path, capsys):
+    """pointfoot_flat at 2 envs, 5 steps, a copy of the committed actor:
+    the JSON line, the export beside the checkpoint (its ONNX read by the
+    native runner against the actor), the dashboard, and the pinned
+    command in every logged step."""
+    npz = tmp_path / "ckpt" / "actor.npz"
+    npz.parent.mkdir()
+    shutil.copy(policy_eval.FLAT_ACTOR, npz)
+    dash = tmp_path / "dash.png"
+    rec = play.main(["--task", "pointfoot_flat", "--device", "cpu",
+                     "--num_envs", "2", "--steps", "5", "--export",
+                     "--load_run", str(npz), "--cmd", "0.4", "0", "0",
+                     "--dashboard", str(dash)])
+    out = capsys.readouterr().out
+    assert json.loads(next(s for s in out.splitlines()
+                           if s.startswith("{"))) == rec
+    assert rec["level"] is None and rec["cmd_vx"] == 0.4 and rec["envs"] == 2
+    assert "Total number of episodes" in out
+    with Image.open(dash) as im:
+        assert im.format == "PNG"
+    exported = tmp_path / "ckpt" / "exported"
+    assert (exported / "policy_1.pt").exists()
+    env = policy_eval.make_eval_env("pointfoot_flat", 2, device="cpu")
+    net = policy_eval.load_actor(env, "pointfoot_flat", str(npz))
+    obs = torch.randn(3, env.num_obs, generator=torch.Generator()
+                      .manual_seed(0))
+    with torch.no_grad():
+        ref = net.act_mean(obs).numpy()
+    np.testing.assert_allclose(
+        NativePolicy(str(exported / "policy.onnx"))(obs.numpy()), ref,
+        atol=2e-5)
+
+    logger, rec2 = play.run("pointfoot_flat", str(npz), 2, 5,
+                            cmd=(0.4, 0.0, 0.0), device="cpu")
+    assert rec2 == rec
+    log = logger.state_log
+    assert len(log["command_x"]) == 5
+    assert all(v == np.float32(0.4) for v in log["command_x"])
+    assert all(v == 0.0 for v in log["command_y"])
+    for k, v in log.items():
+        assert np.isfinite(np.asarray(v, np.float64)).all(), k
+    assert np.asarray(log["contact_forces_z"]).shape == (5, 2)
+
+
+def test_play_cli_defaults_to_the_flagship(capsys):
+    """Without --task: pointfoot_rough on procedural terrain with the
+    committed flagship actor, level 0, vx 0.4."""
+    rec = play.main(["--device", "cpu", "--num_envs", "2", "--steps", "2"])
+    assert (rec["level"], rec["cmd_vx"], rec["envs"]) == (0, 0.4, 2)
+    assert "pointfoot_rough_model_234000_actor.npz" in \
+        capsys.readouterr().out
+
+
+def test_test_env_cli(capsys):
+    steps = test_env.main(["--task", "anymal_c_flat", "--device", "cpu",
+                           "--episodes", "0.005"])
+    assert steps == 5
+    assert capsys.readouterr().out.strip().splitlines()[-1] == "Done"
+
+
+@pytest.mark.parametrize("extra", [[], ["--perturb", "0.1", "--wz", "0.5",
+                                        "--terrain", "wave:0.04"]],
+                         ids=["flat", "perturbed_wave"])
+def test_gait_diag_cli(capsys, extra):
+    rep = gait_diag.main(["--device", "cpu", "--b", "2", "--ticks", "5",
+                          "--vx", "0.4"] + extra)
+    out = capsys.readouterr().out
+    assert rep["ticks"] == 5 and 0 <= rep["falls"] <= 2
+    assert f"falls: {rep['falls']}/2" in out
+    assert "time-to-fall per env [ticks]" in out
+    for name in ("z", "tilt", "vx", "vy", "wz"):
+        assert f"  {name}: t<1s mean" in out
+    assert "  t= 0.00s ph=" in out
+    if extra:
+        assert "yaw progress:" in out
+
+
+@pytest.mark.parametrize("mode", ["policy", "gait"])
+def test_make_gif_cli(tmp_path, capsys, mode):
+    out = str(tmp_path / f"{mode}.gif")
+    args = ["--mode", mode, "--device", "cpu", "--steps", "3", "--every",
+            "1", "--out", out]
+    if mode == "policy":
+        args += ["--task", "pointfoot_flat"]
+    assert make_gif.main(args) == out
+    assert f"wrote {out} (3 frames)" in capsys.readouterr().out
+    with Image.open(out) as im:
+        assert im.format == "GIF" and im.n_frames == 3

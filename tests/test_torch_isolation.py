@@ -1,5 +1,9 @@
 """The PyTorch port stands alone: no JAX, nothing of the JAX package, its
-own asset copy, and entry points that refuse to drop to the CPU."""
+own asset copy, and entry points that refuse to drop to the CPU.
+
+The benchmarks take a bench lock of their own, not the repository's, so
+that they never pause a trainer of another test process (the subprocesses
+inherit it)."""
 
 import os
 import re
@@ -13,6 +17,11 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "pointfoot_tpu_torch")
 SMOKE = os.path.join(REPO, "chip_smoke.py")
+
+
+@pytest.fixture(autouse=True)
+def private_bench_lock(tmp_path, monkeypatch):
+    monkeypatch.setenv("POINTFOOT_BENCH_LOCK", str(tmp_path / "bench_lock"))
 
 
 def _port_sources():
@@ -228,17 +237,58 @@ def test_parallel_slice_modules_import_without_jax():
     assert proc.stdout.split()[-1] == "ok"
 
 
+def test_last_modules_import_without_jax(tmp_path):
+    """The modules of the last slice (utils, runtime, the URDF compiler,
+    the CLIs), by name, with JAX blocked; a log round trip, a URDF
+    compile and the CLIs' helpers run on the CPU."""
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'orbax', 'optax'):\n"
+        "    sys.modules[m] = None\n"
+        "for n in ('utils.helpers', 'utils.logger', 'utils.profiling', "
+        "'utils.visualizer', 'utils.benchlock', 'runtime', "
+        "'runtime.recorder', 'runtime.policy', 'runtime.native', "
+        "'physics.urdf', 'physics.assets', 'play', 'test_env', "
+        "'gait_diag', 'make_gif', 'comparison', 'shape', 'bake_assets', "
+        "'bench'):\n"
+        "    importlib.import_module('pointfoot_tpu_torch.' + n)\n"
+        "import numpy as np\n"
+        "from pointfoot_tpu_torch.runtime import TrajectoryRecorder, "
+        "read_log\n"
+        "from pointfoot_tpu_torch.physics import load_urdf\n"
+        "from pointfoot_tpu_torch import shape\n"
+        "d = sys.argv[1]\n"
+        "with TrajectoryRecorder(d + '/a.tlog', 3) as r:\n"
+        "    r.push_batch(np.ones((4, 3))); r.flush()\n"
+        "assert read_log(d + '/a.tlog')[0].shape == (4, 3)\n"
+        "assert shape.main([d + '/a.tlog', d + '/a.tlog']).startswith("
+        "'EQUAL')\n"
+        "open(d + '/r.urdf', 'w').write('<robot name=\"r\"><link "
+        "name=\"base\"/><link name=\"leg\"/><joint name=\"j\" "
+        "type=\"revolute\"><parent link=\"base\"/><child "
+        "link=\"leg\"/></joint></robot>')\n"
+        "m, jmap = load_urdf(d + '/r.urdf')\n"
+        "assert (m.nb, jmap) == (2, {'j': 0})\n"
+        "bad = [m for m in sys.modules if m == 'pointfoot_tpu' or "
+        "m.startswith('pointfoot_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
+
+
 # JAX's names the port's packages do not export, and why: TrainState has no
-# counterpart (rl/__init__.py), load_urdf is not ported yet
-# (physics/__init__.py), multihost_init is init_distributed
-REEXPORT_GAPS = {"rl": {"TrainState"}, "physics": {"load_urdf"},
-                 "parallel": {"multihost_init"}}
+# counterpart (rl/__init__.py), multihost_init is init_distributed
+REEXPORT_GAPS = {"rl": {"TrainState"}, "parallel": {"multihost_init"}}
 REEXPORT_EXTRA = {"parallel": {"init_distributed", "Mesh", "all_reduce_sum_",
                                "all_reduce_mean_", "all_gather_rows"}}
 
 
 @pytest.mark.parametrize("package", ["envs", "rl", "physics", "terrain",
-                                     "parallel"])
+                                     "parallel", "runtime"])
 def test_package_reexports_match_jax(package):
     import importlib
 
@@ -269,8 +319,16 @@ def test_bench_record_and_unported_modes(capsys):
     cond = rec["conditions"]
     assert cond["solver"] == "plain" and cond["card"] == "cpu"
     assert len(cond["reps_solves_per_sec"]) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bench.main(["--mode", "env_phases", "--device", "cpu"])
+    assert cond["trainer"] == "no_trainer"
+    # every mode runs: env_phases, the last one ported, gives its record
+    assert set(bench.MODES) == set(bench.ITERS)
+    rec = bench.main(["--mode", "env_phases", "--device", "cpu",
+                      "--num_envs", "1", "--iters", "1", "--steps", "1"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == rec
+    assert set(rec) == {"metric", "value", "unit", "vs_baseline",
+                        "conditions", "phases", "phase_gain_us_per_step",
+                        "num_envs"}
+    assert len(rec["phases"]) == 6 and rec["conditions"]["card"] == "cpu"
 
 
 def test_bench_mpc_ilqr_record(capsys):
@@ -295,8 +353,9 @@ def test_bench_mpc_ilqr_record(capsys):
 
 def _entry_points():
     from pointfoot_tpu_torch import (bench, device, eval_policy,
-                                     export_policy, gan, identifier,
-                                     inference, play, scaling_bench, train)
+                                     export_policy, gait_diag, gan,
+                                     identifier, inference, make_gif, play,
+                                     scaling_bench, test_env, train)
     from pointfoot_tpu_torch.parallel import mesh
     from pointfoot_tpu_torch.export.onnx import load_policy_as_torch
     from pointfoot_tpu_torch.utils import policy_eval, registry
@@ -334,6 +393,16 @@ def _entry_points():
             "policy.pt")),
         "make_mesh": lambda: mesh.make_mesh(),
         "scaling_bench": lambda: scaling_bench.main([]),
+        "play_task": lambda: play.main(["--task", "pointfoot_flat",
+                                        "--num_envs", "2", "--steps", "1"]),
+        "bench_env_phases": lambda: bench.main(["--mode", "env_phases",
+                                                "--num_envs", "2"]),
+        "test_env": lambda: test_env.main(["--episodes", "0.001"]),
+        "gait_diag": lambda: gait_diag.main(["--b", "2", "--ticks", "1"]),
+        "make_gif_policy": lambda: make_gif.main(["--steps", "1",
+                                                  "--out", os.devnull]),
+        "make_gif_gait": lambda: make_gif.main(["--mode", "gait", "--steps",
+                                                "1", "--out", os.devnull]),
     }
 
 
@@ -346,7 +415,10 @@ def _entry_points():
                                   "eval_policy", "export_policy", "gan",
                                   "identifier", "inference",
                                   "load_policy_as_torch", "make_mesh",
-                                  "scaling_bench"])
+                                  "scaling_bench", "play_task",
+                                  "bench_env_phases", "test_env",
+                                  "gait_diag", "make_gif_policy",
+                                  "make_gif_gait"])
 def test_entry_points_raise_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

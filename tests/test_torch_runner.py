@@ -11,6 +11,10 @@ deterministic on both sides.  The transitions agree at the env parity
 tests' tolerance (atol 2e-3; measured 1.3e-5 on the observations); the
 PPO metrics and parameters as in tests/test_torch_ppo.py, whose
 module docstring explains the Adam bound.
+
+The benchmark and the runs of `learn` take a bench lock of their own, not
+the repository's, so that they never pause a trainer of another test
+process.
 """
 
 import json
@@ -31,6 +35,12 @@ from pointfoot_tpu_torch.rl.ppo import Transition
 from pointfoot_tpu_torch.utils import convert
 from pointfoot_tpu_torch.utils.registry import (get_cfgs, make_alg_runner,
                                                 make_env)
+
+
+@pytest.fixture(autouse=True)
+def private_bench_lock(tmp_path, monkeypatch):
+    monkeypatch.setenv("POINTFOOT_BENCH_LOCK", str(tmp_path / "bench_lock"))
+
 
 B, T = 8, 4
 ATOL = 2e-3  # tests/test_torch_env.py
