@@ -208,6 +208,25 @@ fused rollout kernels on its shard).
    steps each, one process a task; `[gait-diag]` the gait_diag CLI at 4096
    scenarios, vx 0.4, 25 ticks: kernel 6 once and kernels 3 and 4 four
    times a tick, the falls.
+19. the run-diagnostic and validation CLIs, each through its `main` with
+   the launch counts zeroed just before and read just after, each kernel
+   held first to its plain version on the tool's first inputs:
+   `[catapult-hunt]` catapult_hunt at 4096 pointfoot_flat envs (training
+   conditions, the committed flat actor) for CATAPULT_STEPS steps, kernel
+   1 four times a step; `[ctrlseq]` ctrlseq_compare at CTRLSEQ_STEPS ticks
+   (1 env), kernel 6 at 1 scenario once a gait tick (twice 100), its
+   numbers held to the JAX script's (CTRLSEQ_JAX);
+   `[profile-substep]` profile_substep at 4096 envs, its five rows (the
+   procedural env.step through kernels 1-2, step_batched through kernels
+   4 and 3, kernel 5 for the solve); `[regen-golden]` regen_golden into a
+   temporary copy of tests/golden (its anchor held to the repository's at
+   the golden tolerance) and replay_archive there; `[storm-guard]` the
+   guard on the committed flagship run's log, which must read calm;
+   `[terrain-stats]`
+   terrain_family_stats on a checkpoint of the flagship env's state after
+   `[rollout]`; `[multihost]` multihost_smoke, two gloo ranks sharing the
+   card; `[contact]` contact_calibration's CONTACT_EXPERIMENTS, the feet's
+   normal forces within 5% of the weight.
 
 The line before the last holds the kernels' JSON record, the one before it
 the card's name and power limit, and the last line is the JSON
@@ -235,7 +254,11 @@ import torch
 import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from pointfoot_tpu_torch import bench, gait_diag, play, shape
+from pointfoot_tpu_torch import (bench, catapult_hunt, contact_calibration,
+                                 ctrlseq_compare, gait_diag,
+                                 multihost_smoke, play, profile_substep,
+                                 regen_golden, shape, storm_guard,
+                                 terrain_family_stats)
 from pointfoot_tpu_torch.kernel_times import (A1_QDEF, dense_problem,
                                               graph_ms, substep_inputs)
 from pointfoot_tpu_torch.kernel_times import events_ms as cuda_ms
@@ -243,6 +266,7 @@ from pointfoot_tpu_torch.mpc import costs as mpc_costs
 from pointfoot_tpu_torch.mpc import gait as gait_mpc
 from pointfoot_tpu_torch.mpc import ilqr, srb
 from pointfoot_tpu_torch.mpc.controller import MPCController
+from pointfoot_tpu_torch.mpc.gait import SteppingController
 from pointfoot_tpu_torch.export.onnx import load_policy_as_torch
 from pointfoot_tpu_torch.models.nets import (LSTMIdentifier, MLPCritic,
                                              MLPDiscriminator, MLPGenerator)
@@ -422,6 +446,26 @@ GAIT_DIAG_TICKS = 25
 NATIVE_POLICY_TOL = 2e-5
 PHASE18_DIR = os.path.join("smoke_out", "phase18")  # gitignored
 DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")  # trace categories
+# phase 19, the diagnostic CLIs: the catapult hunt's steps (the JAX
+# script's default 3000 cut to fit the script's limit); the control-sequence
+# comparison's ticks (its default 250 cut for the same reason); the contact
+# experiments (the four take ~3,500 eager one-robot substeps); the golden
+# anchor's tolerance (tests/test_golden_trajectory.py:49-50)
+CATAPULT_STEPS = 1000
+CTRLSEQ_STEPS = 100
+# the JAX script's lines at CTRLSEQ_STEPS on a CPU, same actor and initial
+# states (`JAX_PLATFORMS=cpu python scripts/ctrlseq_compare.py --steps
+# 100`), and what the card's may differ by: the MPC's loop from its fixed
+# state agrees to the printed digit; the RL loops amplify roundoff from
+# tick to tick (tests/test_torch_diagnostics.py holds 60 ticks on the CPU)
+CTRLSEQ_JAX = {"mpc_vx": 0.476, "rl_vx": 0.47, "normalized_rms": 2.057}
+CTRLSEQ_TOL = {"mpc_vx": 2e-3, "rl_vx": 2e-2, "normalized_rms": 5e-2}
+PROFILE_CALLS = 24  # profile_substep: 2 warm + 20 timed + flops + bytes
+CONTACT_EXPERIMENTS = "static"
+CONTACT_WEIGHT_TOL = 0.05  # share of the weight
+GOLDEN_ATOL, GOLDEN_RTOL = 2e-3, 1e-4
+STORM_LOG = os.path.join("logs", "pointfoot_rough", "tpu_r4_storm",
+                         "metrics.jsonl")
 # tests/test_torch_ppo.py: losses, KL and gradients (rtol, and atol scaled
 # by the tensor's largest entry for gradients)
 PPO_RTOL, PPO_ATOL = 1e-5, 1e-6
@@ -1049,8 +1093,7 @@ def anymal_kernels(env, mc, pf_env, pf_state):
         err=chol_err, **kernel_ms(lambda: ch.chol_solve_lanes(A_t, b_t)),
         plain_ms=cuda_ms(lambda: ch.chol_solve_lanes_plain(A_t, b_t), 5,
                          warmup=1),
-        # A's lower triangle (all that the factor reads) and b in, x out
-        nbytes=4 * n * (nv * (nv + 1) // 2 + 2 * nv),
+        nbytes=ch.chol_solve_bytes(nv, n),
         ops=count_ops(lambda: ch.chol_solve_lanes_plain(A_t, b_t)),
         library_ms=cuda_ms(library, 50))
     pf_ms = kernel_ms(lambda: ch.chol_solve_lanes(pf_A, pf_b))
@@ -1121,7 +1164,7 @@ def pointfoot_rollout(env, mc, policy, xyz):
     log(f"[probe] {json.dumps(rec)}")
     if not (rec["falls"] <= NUM_ENVS and rec["mean_vx"] >= 0.15):
         raise AssertionError(f"probe outside its band: {rec}")
-    return launches
+    return launches, state
 
 
 # -------------------------------------------- 5. anymal_c_rough, 4096 envs
@@ -3423,6 +3466,265 @@ def last_modules_phase(pf_env, policy) -> dict:
     return dict(env_phases=env_phases, gait_diag=gait)
 
 
+# -------------------------------- 19. the run-diagnostic and validation CLIs
+
+def timed_tool(tag: str, fn):
+    """Run a tool's main with the launch counts zeroed just before and read
+    just after: (its result, the lines it printed, wall s, launches)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rec, printed = capture_stdout(fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    log(f"[{tag}] {wall:.2f} s, launches {launches}")
+    return rec, printed, wall, launches
+
+
+def catapult_phase() -> dict:
+    """[catapult-hunt]: kernel 1 on the hunt's first step (the state after
+    its zero-action step, the policy's mean plus exploration), then
+    catapult_hunt.main at NUM_ENVS plane envs: four launches a step."""
+    env = make_env("pointfoot_flat", num_envs=NUM_ENVS)
+    policy = policy_eval.inference_policy(
+        policy_eval.load_actor(env, "pointfoot_flat", policy_eval.FLAT_ACTOR))
+    gen = torch.Generator(device=env.device).manual_seed(42)
+    with torch.no_grad():
+        state, out = env.step(env.init_state(3), torch.zeros(
+            NUM_ENVS, env.num_actions, device=env.device))
+        act = policy(out.obs) + 0.6 * torch.randn(
+            NUM_ENVS, env.num_actions, generator=gen, device=env.device)
+        errs = check_env_rollout(env, state, act, "catapult hunt, plane")
+    del env, state, out, act
+    rec, printed, wall, launches = timed_tool(
+        "catapult-hunt", lambda: catapult_hunt.main(
+            ["--envs", str(NUM_ENVS), "--steps", str(CATAPULT_STEPS),
+             "--load_run", policy_eval.FLAT_ACTOR]))
+    steps = rec["steps"]
+    expect_counts(launches, rollout_substep=4 * (1 + steps))
+    found = ("no catapult events detected" if not rec["events"] else
+             "events at steps " + ", ".join(
+                 f"{e['t']} (env {e['env']}, {e['count']} envs)"
+                 for e in rec["events"]))
+    log(f"[catapult-hunt] pointfoot_flat (registered: noise, domain "
+        f"randomization, pushes), {NUM_ENVS} envs, the flat actor + 0.6 "
+        f"exploration, {steps} steps in {wall:.2f} s "
+        f"({NUM_ENVS * steps / wall:.0f} env-steps/s, host sync a step): "
+        f"{found}")
+    for line in printed[:40] if rec["events"] else ():
+        log(f"[catapult-hunt] {line}")
+    return dict(launches=launches, err=max(errs.values()))
+
+
+def ctrlseq_phase() -> dict:
+    """[ctrlseq]: kernel 6 at 1 scenario on the comparison's first gait
+    tick, then ctrlseq_compare.main at CTRLSEQ_STEPS ticks: kernel 6 once a
+    tick of each of its two gait loops; its numbers against the JAX
+    script's."""
+    env = make_env("pointfoot_flat", num_envs=1,
+                   cfg_patch=ctrlseq_compare.EVAL_PATCH)
+    model, dev = env.model, env.device
+    mpc = SteppingController(model, PhysicsParams.nominal(model, 1, dev),
+                             model.collision_indices("foot"),
+                             np.zeros(model.nj))
+    cmd = [0.4, 0.0, 0.0]  # ctrlseq_compare's default --vx
+    with torch.no_grad():
+        state, step = ctrlseq_compare.rl_start(env, 0)
+        state, _ = step(env.update_cmd(state, cmd),
+                        torch.zeros(1, env.num_actions, device=dev))
+        phys = state.physics
+        cmd_t = torch.tensor([cmd], device=dev)
+        prob = mpc.srb_tick_problem(phys, mpc.placement(
+            phys, cmd_t, mpc.init(1, phys)))
+    T = mpc.srb.horizon
+    staged = rk.stage(*prob)
+    err = check_srb_lqr(staged, T, "ctrl-seq tick 1, 1 scenario", sizes=(1,))
+    f_err, share = check_close(rk.srb_lqr(*prob, horizon=T),
+                               srb.sequential_srb_lqr(*prob, horizon=T)[0],
+                               LQR_TOL, LQR_TOL,
+                               "ctrl-seq tick: kernel 6 vs sequential")
+    check_same_bits("srb_lqr ctrl-seq tick 1",
+                    lambda: rk.srb_lqr_lanes(*staged, T))
+    log(f"[ctrlseq] kernel 6 at 1 scenario vs sequential_srb_lqr max |err| "
+        f"{f_err:.3g} N ({100 * share:.2g}% of rtol/atol {LQR_TOL})")
+    rec, printed, wall, launches = timed_tool(
+        "ctrlseq", lambda: ctrlseq_compare.main(
+            ["--steps", str(CTRLSEQ_STEPS)]))
+    expect_counts(launches, srb_lqr=2 * CTRLSEQ_STEPS)
+    for line in printed:
+        log(f"[ctrlseq] {line}")
+    for line in (rec["ctrlseq"], rec["tracking"]):
+        if not all(np.isfinite(v) for v in line.values()
+                   if not isinstance(v, str)):
+            raise AssertionError(f"ctrlseq_compare: non-finite {line}")
+    got = {**rec["ctrlseq"], **rec["tracking"]}
+    for k, want in CTRLSEQ_JAX.items():
+        log(f"[ctrlseq] {k} {got[k]} on the card, {want} from the JAX "
+            f"script (tolerance {CTRLSEQ_TOL[k]})")
+        if not abs(got[k] - want) <= CTRLSEQ_TOL[k]:
+            raise AssertionError(f"ctrlseq_compare: {k} {got[k]} against "
+                                 f"the JAX script's {want}")
+    log(f"[ctrlseq] {wall / CTRLSEQ_STEPS * 1e3:.2f} ms of the tool's wall "
+        f"a tick: two gait ticks, one with 4 dynamics.step substeps, and "
+        f"two 1-env env steps (1 scenario, plain route)")
+    return dict(launches=launches, err=max(err, f_err))
+
+
+def profile_substep_phase(pf_env, mc_pf) -> dict:
+    """[profile-substep]: kernels 1-2 on the env.step row's first inputs
+    and kernels 3-5 on the substep rows', then profile_substep.main at
+    NUM_ENVS envs."""
+    dev = pf_env.device
+    with torch.no_grad():
+        st = pf_env.init_state(0)
+        zeros = torch.zeros(NUM_ENVS, pf_env.num_actions, device=dev)
+        roll_err = max(check_env_rollout(pf_env, st, zeros,
+                                         "profile_substep env.step").values())
+        fk_err = check_fk_rows(mc_pf, sp.pack_state(st.physics, st.last_qvel),
+                               "profile_substep env.step")
+        del st
+        model = get_model("pointfoot").to(dev)
+        pp = PhysicsParams.nominal(model, NUM_ENVS, dev)
+        phys = PhysicsState.default(model, torch.zeros(6), NUM_ENVS, dev,
+                                    base_height=0.62)
+        tau = torch.zeros(NUM_ENVS, model.nj, device=dev)
+        sub_err, xy_err = check_loop_step(model, pp, phys, tau,
+                                          profile_substep.DT,
+                                          "profile_substep step_batched")
+        A, rhs, _ = dynamics.assemble_velocity_solve(
+            model, pp, phys, tau, FLAT, profile_substep.DT)
+        nv = model.nv
+        chol_err = check_cholesky(
+            A.reshape(NUM_ENVS, nv * nv).t().contiguous(),
+            rhs.t().contiguous(), f"profile_substep n={nv} B={NUM_ENVS}")
+    profile_substep.B = NUM_ENVS
+    rec, printed, wall, launches = timed_tool(
+        "profile-substep", lambda: profile_substep.main([]))
+    n = PROFILE_CALLS
+    expect_counts(launches, rollout_substep=4 * n, fk_from_state=n,
+                  substep=n, fk_contact_xy=n, chol_solve=n)
+    for line in printed:
+        if line.strip():
+            log(f"[profile-substep] {line}")
+    return dict(launches=launches, roll_err=roll_err, fk_err=fk_err,
+                sub_err=sub_err, xy_err=xy_err, chol_err=chol_err,
+                rows=rec["rows"])
+
+
+def golden_phase(tmp: str):
+    """[regen-golden]: regen_golden.main into a copy of tests/golden, the
+    card's anchor held to the repository's, then replay_archive there."""
+    gdir = os.path.join(tmp, "golden")
+    shutil.copytree(regen_golden.GOLDEN_DIR, gdir)
+    rec, printed, wall, launches = timed_tool(
+        "regen-golden", lambda: regen_golden.main(
+            ["--reason", "chip_smoke phase 19 on the card", "--golden_dir",
+             gdir]))
+    expect_counts(launches)  # 1 env: the plain route
+    for line in printed:
+        log(f"[regen-golden] {line}")
+    with np.load(os.path.join(gdir, regen_golden.ANCHOR_NAME)) as new, \
+            np.load(os.path.join(regen_golden.GOLDEN_DIR,
+                                 regen_golden.ANCHOR_NAME)) as ref:
+        errs = {k: float(np.abs(new[k] - ref[k]).max())
+                for k in ("torques", "obs")}
+        close = all(np.allclose(new[k], ref[k], atol=GOLDEN_ATOL,
+                                rtol=GOLDEN_RTOL) for k in errs)
+        ref_tau = ref["torques"]
+    log(f"[regen-golden] generation {rec['generation']} on the card vs the "
+        f"repository's anchor, max |err|: {json.dumps(errs)} (atol "
+        f"{GOLDEN_ATOL}, rtol {GOLDEN_RTOL})")
+    if not close:
+        raise AssertionError(f"regen_golden on the card: anchor beyond the "
+                             f"golden tolerance, {errs}")
+    drifts, printed = capture_stdout(
+        lambda: regen_golden.replay_archive(gdir, "cuda"))
+    for name, drift in drifts.items():
+        with np.load(os.path.join(gdir, "archive", name)) as a:
+            want = float(np.abs(a["torques"] - ref_tau).max())
+        log(f"[regen-golden] replay {name}: drift {drift:.4f} N·m on the "
+            f"card, {want:.4f} against the repository's anchor")
+        if not abs(drift - want) <= GOLDEN_ATOL:
+            raise AssertionError(f"replay_archive {name}: drift {drift} "
+                                 f"vs {want}")
+
+
+def storm_terrain_phase(tmp: str, pf_env, pf_state):
+    """[storm-guard] on the committed flagship run's log, which reads calm
+    (tests/test_torch_diagnostics.py holds the guard to JAX's on it);
+    [terrain-stats] on a checkpoint of the flagship env's state after
+    [rollout]."""
+    # check, not main: main would append an alarm beside a committed log
+    code, msg = storm_guard.check(STORM_LOG)
+    log(f"[storm-guard] {STORM_LOG}: code {code}: {msg}")
+    if code != 0:
+        raise AssertionError(f"storm_guard on {STORM_LOG}: code {code}: "
+                             f"{msg}")
+    runner = make_alg_runner(pf_env, "pointfoot_rough",
+                             log_dir=os.path.join(tmp, "rough"))
+    ckpt = runner.save(pf_state)
+    rec, _ = capture_stdout(lambda: terrain_family_stats.main([ckpt]))
+    log(f"[terrain-stats] the flagship's state after [rollout]: "
+        f"{json.dumps({k: v for k, v in rec.items() if k != 'ckpt'})}")
+    if sum(f["envs"] for f in rec["families"]) != NUM_ENVS:
+        raise AssertionError(f"terrain_family_stats: families do not cover "
+                             f"the {NUM_ENVS} envs: {rec}")
+
+
+def multihost_phase():
+    """[multihost]: two gloo ranks sharing the card sum their shards."""
+    rec, printed, wall, _ = timed_tool("multihost",
+                                       lambda: multihost_smoke.main([]))
+    for line in printed:
+        log(f"[multihost] {line}")
+    if not (rec["ok"] and rec["total"] == rec["expected"]):
+        raise AssertionError(f"multihost_smoke: {rec}")
+
+
+def contact_phase():
+    """[contact]: contact_calibration's CONTACT_EXPERIMENTS on the card
+    (one robot: the plain route), the feet's normal forces within
+    CONTACT_WEIGHT_TOL of the weight."""
+    rec, printed, wall, launches = timed_tool(
+        "contact", lambda: contact_calibration.main(
+            ["--experiments", CONTACT_EXPERIMENTS]))
+    expect_counts(launches)
+    for line in printed:
+        log(f"[contact] {line}")
+    s = rec["static"]
+    log(f"[contact] {CONTACT_EXPERIMENTS} in {wall:.2f} s; feet's normal "
+        f"forces {s['fz_sum']:.3f} N against the weight {s['weight']:.3f} N")
+    if not abs(s["fz_sum"] - s["weight"]) <= CONTACT_WEIGHT_TOL * s["weight"]:
+        raise AssertionError(f"contact calibration: {s}")
+
+
+def diagnostics_phase(pf_env, mc_pf, pf_state) -> dict:
+    """Phase 19; returns each kernel's launches and max |err| here."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p19_")
+    try:
+        cat = catapult_phase()
+        ctrl = ctrlseq_phase()
+        prof = profile_substep_phase(pf_env, mc_pf)
+        golden_phase(tmp)
+        storm_terrain_phase(tmp, pf_env, pf_state)
+        multihost_phase()
+        contact_phase()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = add_counts(cat["launches"], ctrl["launches"],
+                          prof["launches"])
+    log(f"[diagnostics] phase 19 in {time.perf_counter() - t0:.1f} s; "
+        f"launches {launches}")
+    errs = {"rollout_substep": max(cat["err"], prof["roll_err"]),
+            "fk_from_state": prof["fk_err"], "substep": prof["sub_err"],
+            "fk_contact_xy": prof["xy_err"], "chol_solve": prof["chol_err"],
+            "srb_lqr": ctrl["err"]}
+    return {k: dict(diag_launches=launches.get(k, 0), diag_max_abs_err=e)
+            for k, e in errs.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3451,7 +3753,7 @@ def main() -> int:
     check_fk_rows(mc_a1, substep_inputs(a1_model, A1_QDEF, 0.3, NUM_ENVS, 3,
                                         pf_env.device)[2], "A1 perturbed")
     log(f"[t] kernels checked at {time.perf_counter() - t_start:.1f} s")
-    pf_launches = pointfoot_rollout(pf_env, mc_pf, policy, xyz)
+    pf_launches, pf_after = pointfoot_rollout(pf_env, mc_pf, policy, xyz)
     any_launches = anymal_rollout(any_env, lay)
     physical_gate()
     chol_launches = cholesky_route()
@@ -3489,6 +3791,10 @@ def main() -> int:
     log(f"[t] data parallelism done at {time.perf_counter() - t_start:.1f} s")
     last = last_modules_phase(pf_env, policy)
     log(f"[t] the last modules done at {time.perf_counter() - t_start:.1f} s")
+    diag = diagnostics_phase(pf_env, mc_pf, pf_after)
+    del pf_after
+    log(f"[t] the diagnostic CLIs done at "
+        f"{time.perf_counter() - t_start:.1f} s")
     p18 = {k: dict(env_phases_launches=last["env_phases"].get(k, 0))
            for k in ("rollout_substep", "fk_from_state")}
     p18.update({k: dict(gait_diag_launches=last["gait_diag"].get(k, 0))
@@ -3509,31 +3815,34 @@ def main() -> int:
              sysid_max_abs_err=sysid["err"],
              dp_launches=[c["rollout_substep"] for c in dp["launches"]],
              dp_nccl_launches=dp["nccl"]["rollout_substep"],
-             dp_max_abs_err=dp["err"], **p18["rollout_substep"]),
+             dp_max_abs_err=dp["err"], **p18["rollout_substep"],
+             **diag["rollout_substep"]),
         dict(kernel_record("fk_from_state_kernel", SUBSTEP_SRC,
                            "pointfoot_tpu/ops/pallas/substep.py:328",
                            pf_launches["fk_from_state"], **fk),
              rnn_train_launches=rnn_launches["fk_from_state"],
              dp_launches=[c["fk_from_state"] for c in dp["launches"]],
              dp_nccl_launches=dp["nccl"]["fk_from_state"],
-             dp_max_abs_err=dp["err"], **p18["fk_from_state"]),
+             dp_max_abs_err=dp["err"], **p18["fk_from_state"],
+             **diag["fk_from_state"]),
         dict(kernel_record("substep_kernel", SUBSTEP_SRC,
                            "pointfoot_tpu/ops/pallas/substep.py:65",
                            any_launches["substep"], **sub),
-             **phase15["substep"], **p18["substep"]),
+             **phase15["substep"], **p18["substep"], **diag["substep"]),
         dict(kernel_record("fk_contact_xy_kernel", SUBSTEP_SRC,
                            "pointfoot_tpu/ops/pallas/substep.py:201",
                            any_launches["fk_contact_xy"], **fkxy),
-             **phase15["fk_contact_xy"], **p18["fk_contact_xy"]),
+             **phase15["fk_contact_xy"], **p18["fk_contact_xy"],
+             **diag["fk_contact_xy"]),
         dict(kernel_record("chol_solve_kernel", CHOL_SRC,
                            "pointfoot_tpu/ops/pallas/cholesky.py:35",
                            chol_launches["chol_solve"], **chol),
-             **phase15["chol_solve"]),
+             **phase15["chol_solve"], **diag["chol_solve"]),
         dict(kernel_record("srb_lqr_kernel", RICCATI_SRC,
                            "pointfoot_tpu/ops/pallas/riccati.py:32",
                            mpc_launches["srb_lqr"], **lqr),
              **phase15["srb_lqr"], gait_max_abs_err=gait["err"],
-             **p18["srb_lqr"]),
+             **p18["srb_lqr"], **diag["srb_lqr"]),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -30,6 +30,12 @@ SIZES = (12, 18)
 CHOL_MIN_BATCH = 128
 
 
+def chol_solve_bytes(n: int, B: int) -> int:
+    """The bytes a launch at B systems of size n must move: A's lower
+    triangle (all that the factor reads) and b in, x out."""
+    return 4 * B * (n * (n + 1) // 2 + 2 * n)
+
+
 def chol_solve_lanes_plain(A_t: torch.Tensor, b_t: torch.Tensor
                            ) -> torch.Tensor:
     """x_t (n, B) solving A x = b per column, from A_t (n·n, B) and b_t

@@ -1,13 +1,14 @@
 """Plane terrain and pointfoot_flat under the port.
 
 - The golden control-sequence anchor (tests/test_golden_trajectory.py):
-  the JAX package makes the 1-env state (PRNGKey 42, noise and domain
-  randomization off, command pinned to 0.3 m/s), the port steps it 50 times
+  from the JAX package's 1-env state (PRNGKey 42, noise and domain
+  randomization off, command pinned to 0.3 m/s) the port steps 50 times
   with the anchor's actions and must reproduce
   tests/golden/pointfoot_flat_50step.npz at the anchor's own tolerances.
-  The robot falls and resets inside the window; the reset's random draws
-  are JAX's, made from the JAX state's key as the JAX step would split it
-  (trap (b) of ROADMAP §3: the two packages' random streams differ).
+  The robot falls and resets inside the window; the initial state and
+  the reset's random draws are JAX's, committed with the recipe
+  (regen_golden.record_rollout; trap (b) of ROADMAP §3: the two
+  packages' random streams differ).
 - An 8-env window against the JAX env (model_82000's actor, noise off),
   clear of resets, pushes and command resamples.
 - tests/test_nan_quarantine.py, tests/test_tracking_rel.py and the
@@ -27,12 +28,11 @@ import pytest
 import torch
 
 from _torch_parity import export_fields
+from pointfoot_tpu_torch import regen_golden
 from pointfoot_tpu_torch.envs import legged_env as le
-from pointfoot_tpu_torch.envs.config import override
-from pointfoot_tpu_torch.envs.legged_env import LeggedEnv
 from pointfoot_tpu_torch.ops import quat as quat_ops
 from pointfoot_tpu_torch.utils import convert, policy_eval
-from pointfoot_tpu_torch.utils.registry import get_cfgs, make_env
+from pointfoot_tpu_torch.utils.registry import make_env
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
                       "pointfoot_flat_50step.npz")
@@ -40,72 +40,16 @@ B = 8
 ATOL = 2e-3
 
 
-def _golden_patch():
-    return dict(env=dict(num_envs=1), noise=dict(add_noise=False),
-                domain_rand=dict(randomize_friction=False, push_robots=False,
-                                 randomize_base_mass=False,
-                                 randomize_base_com=False))
-
-
-def _jax_reset_draws(key, nj):
-    """The draws of the JAX env's `_reset_envs(state, done, k_reset)` for
-    one env, keyed as the port's `_uniform` is called: (shape, lo, hi)."""
-    k_reset = jax.random.split(key, 5)[2]
-    k = jax.random.split(k_reset, 6)
-    return {
-        ((1, nj), 0.5, 1.5): np.array(jax.random.uniform(
-            k[1], (1, nj), minval=0.5, maxval=1.5)),
-        ((1, 6), -0.5, 0.5): np.array(jax.random.uniform(
-            k[3], (1, 6), minval=-0.5, maxval=0.5)),
-    }
-
-
-def test_control_sequence_matches_golden(monkeypatch):
-    from pointfoot_tpu.envs.config import override as joverride
-    from pointfoot_tpu.envs.legged_env import LeggedEnv as JaxEnv
-    from pointfoot_tpu.utils.registry import task_registry
-
-    jenv = JaxEnv(joverride(task_registry.get_cfgs("pointfoot_flat")[0],
-                            **_golden_patch()))
-    js = jenv.init_state(jax.random.PRNGKey(42))
-    js = jenv.update_cmd(js, [0.3, 0.0, 0.0])
-    env = LeggedEnv(override(get_cfgs("pointfoot_flat")[0],
-                             **_golden_patch()), device="cpu")
-    state = convert.env_state_from_numpy(export_fields(js))
-    key = js.rng
-    reset = env._reset_envs
+def test_control_sequence_matches_golden():
+    """regen_golden.record_rollout: the anchor's recipe with JAX's initial
+    state and reset draws (held to JAX by
+    tests/test_torch_diagnostics.py::test_golden_recipe_is_jax_exactly)."""
     resets = []
-
-    def reset_with_jax_draws(st, done):
-        own = env._uniform
-
-        def uniform(shape, lo, hi):
-            got = draws.get((tuple(shape), float(lo), float(hi)))
-            return own(shape, lo, hi) if got is None else \
-                torch.from_numpy(got)
-
-        resets.append(bool(done.any()))
-        monkeypatch.setattr(env, "_uniform", uniform)
-        try:
-            return reset(st, done)
-        finally:
-            monkeypatch.setattr(env, "_uniform", own)
-
-    monkeypatch.setattr(env, "_reset_envs", reset_with_jax_draws)
-    obs, tau = [], []
-    for t in range(50):
-        draws = _jax_reset_draws(key, env.model.nj)
-        key = jax.random.split(key, 5)[0]
-        a = (0.3 * np.sin(np.arange(6) * 1.0 + t * 0.1))[None, :]
-        state, out = env.step(state, torch.tensor(a, dtype=torch.float32))
-        obs.append(out.obs[0].numpy())
-        tau.append(state.torques[0].numpy())
+    obs, tau = regen_golden.record_rollout("cpu", resets=resets)
     assert any(resets), "the anchor's window should hold a reset"
     ref = np.load(GOLDEN)
-    np.testing.assert_allclose(np.stack(tau), ref["torques"], atol=2e-3,
-                               rtol=1e-4)
-    np.testing.assert_allclose(np.stack(obs), ref["obs"], atol=2e-3,
-                               rtol=1e-4)
+    np.testing.assert_allclose(tau, ref["torques"], atol=2e-3, rtol=1e-4)
+    np.testing.assert_allclose(obs, ref["obs"], atol=2e-3, rtol=1e-4)
 
 
 # --------------------------------------- an 8-env window against JAX

@@ -280,6 +280,40 @@ def test_last_modules_import_without_jax(tmp_path):
     assert proc.stdout.split()[-1] == "ok"
 
 
+def test_diagnostic_clis_import_without_jax(tmp_path):
+    """The run-diagnostic and validation CLIs, by name, with JAX blocked;
+    the storm guard and the terrain-family split run on a port run's
+    files."""
+    code = (
+        "import sys, importlib, json\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'orbax', 'optax'):\n"
+        "    sys.modules[m] = None\n"
+        "for n in ('storm_guard', 'terrain_family_stats', 'regen_golden', "
+        "'contact_calibration', 'catapult_hunt', 'ctrlseq_compare', "
+        "'profile_substep', 'multihost_smoke'):\n"
+        "    importlib.import_module('pointfoot_tpu_torch.' + n)\n"
+        "import torch\n"
+        "from pointfoot_tpu_torch import storm_guard, terrain_family_stats\n"
+        "d = sys.argv[1]\n"
+        "open(d + '/metrics.jsonl', 'w').write(''.join(json.dumps(dict("
+        "it=i, value_loss=1.0, noise_std=0.4)) + '\\n' for i in range(20)))\n"
+        "assert storm_guard.main([d])['code'] == 0\n"
+        "torch.save({'iteration': 3, 'env_state': {'terrain_level': "
+        "torch.arange(40) % 10, 'terrain_type': torch.arange(40) % 20}}, "
+        "d + '/model_3.pt')\n"
+        "out = terrain_family_stats.main([d + '/model_3.pt'])\n"
+        "assert sum(f['envs'] for f in out['families']) == 40\n"
+        "bad = [m for m in sys.modules if m == 'pointfoot_tpu' or "
+        "m.startswith('pointfoot_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
+
+
 # JAX's names the port's packages do not export, and why: TrainState has no
 # counterpart (rl/__init__.py), multihost_init is init_distributed
 REEXPORT_GAPS = {"rl": {"TrainState"}, "parallel": {"multihost_init"}}
@@ -352,9 +386,12 @@ def test_bench_mpc_ilqr_record(capsys):
 
 
 def _entry_points():
-    from pointfoot_tpu_torch import (bench, device, eval_policy,
-                                     export_policy, gait_diag, gan,
-                                     identifier, inference, make_gif, play,
+    from pointfoot_tpu_torch import (bench, catapult_hunt,
+                                     contact_calibration, ctrlseq_compare,
+                                     device, eval_policy, export_policy,
+                                     gait_diag, gan, identifier, inference,
+                                     make_gif, multihost_smoke, play,
+                                     profile_substep, regen_golden,
                                      scaling_bench, test_env, train)
     from pointfoot_tpu_torch.parallel import mesh
     from pointfoot_tpu_torch.export.onnx import load_policy_as_torch
@@ -403,6 +440,16 @@ def _entry_points():
                                                   "--out", os.devnull]),
         "make_gif_gait": lambda: make_gif.main(["--mode", "gait", "--steps",
                                                 "1", "--out", os.devnull]),
+        "contact_calibration": lambda: contact_calibration.main(
+            ["--experiments", "static"]),
+        "catapult_hunt": lambda: catapult_hunt.main(
+            ["--load_run", policy_eval.FLAT_ACTOR, "--envs", "2",
+             "--steps", "1"]),
+        "ctrlseq_compare": lambda: ctrlseq_compare.main(["--steps", "1"]),
+        "profile_substep": lambda: profile_substep.main([]),
+        "regen_golden": lambda: regen_golden.main(
+            ["--reason", "r", "--golden_dir", os.devnull]),
+        "multihost_smoke": lambda: multihost_smoke.main([]),
     }
 
 
@@ -418,7 +465,10 @@ def _entry_points():
                                   "scaling_bench", "play_task",
                                   "bench_env_phases", "test_env",
                                   "gait_diag", "make_gif_policy",
-                                  "make_gif_gait"])
+                                  "make_gif_gait", "contact_calibration",
+                                  "catapult_hunt", "ctrlseq_compare",
+                                  "profile_substep", "regen_golden",
+                                  "multihost_smoke"])
 def test_entry_points_raise_without_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
