@@ -531,19 +531,21 @@ def max_err(a, b) -> float:
     return float((a - b).abs().max())
 
 
+# the six kernel wrappers' launch counters, `kernel.<name>` in the registry
+KERNELS = ("rollout_substep", "fk_from_state", "substep", "fk_contact_xy",
+           "chol_solve", "srb_lqr")
+_counts_at: dict = {}  # the counters when reset_counts last ran
+
+
 def reset_counts():
-    sp.reset_launch_counts()
-    ch.chol_solve_lanes.launches = 0
-    rk.srb_lqr_lanes.launches = 0
+    _counts_at.clear()
+    _counts_at.update(profiling.counters())
 
 
 def read_counts() -> dict:
-    return {"rollout_substep": sp.rollout_step.launches,
-            "fk_from_state": sp.fk_rows.launches,
-            "substep": sp.step_rows.launches,
-            "fk_contact_xy": sp.fk_xy_rows.launches,
-            "chol_solve": ch.chol_solve_lanes.launches,
-            "srb_lqr": rk.srb_lqr_lanes.launches}
+    """Launches of each kernel since the last `reset_counts`."""
+    return {k: profiling.counter(f"kernel.{k}")
+            - _counts_at.get(f"kernel.{k}", 0) for k in KERNELS}
 
 
 def expect_counts(got: dict, **want):

@@ -66,7 +66,10 @@ zeros: `physics_only` (every post-physics phase), `no_reward`,
 `no_cmd_push` (command resampling and pushes).  The record's `phases`
 gives each variant's env-steps/s, `phase_gain_us_per_step` the µs a step
 each variant saves against the full step; vs_baseline = the full step's
-env-steps/s over real time, num_envs x 50 Hz.
+env-steps/s over real time, num_envs x 50 Hz.  `phase_ms_per_step` gives,
+from the full step's recorded repetition, the physics' and each phase's
+own host ms a step by its span (`env.<phase>`; the terrain queries inside
+a phase are not its own).
 
 Before it touches the device, `main` takes the bench lock
 (utils/benchlock.py; BENCH_QUIESCE_TIMEOUT_S, default 300 s): a trainer
@@ -81,6 +84,7 @@ Runs on the GPU unless --device names another.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -90,13 +94,14 @@ import numpy as np
 import torch
 
 from pointfoot_tpu_torch.device import resolve_device
+from pointfoot_tpu_torch.envs.legged_env import PHASES, phase_ms_per_step
 from pointfoot_tpu_torch.mpc.controller import MPCController
 from pointfoot_tpu_torch.mpc.ilqr import ILQRConfig
 from pointfoot_tpu_torch.mpc.srb import SRBConfig, SRBController
 from pointfoot_tpu_torch.physics.assets import get_model
 from pointfoot_tpu_torch.physics.model import PhysicsParams, PhysicsState
 from pointfoot_tpu_torch.terrain.analytic import FLAT
-from pointfoot_tpu_torch.utils import benchlock
+from pointfoot_tpu_torch.utils import benchlock, profiling
 from pointfoot_tpu_torch.utils.policy_eval import FLAGSHIP_PATCH
 from pointfoot_tpu_torch.utils.registry import make_alg_runner, make_env
 
@@ -107,8 +112,8 @@ ITERS = {"env": 20, "env_phases": 10, "actuator_net": 20, "mpc": 20,
 ENV_TASKS = {"env": "pointfoot_rough", "actuator_net": "anymal_c_rough"}
 STEPS_PER_ITER = 24
 SETTLE_MAX, SETTLE_AGREE = 8, 0.15
-# env_phases: each variant's ablated phases (LeggedEnv._ablate)
-PHASES = ("reward", "obs", "heights", "reset", "commands", "push")
+# env_phases: each variant's ablated phases (LeggedEnv._ablate; PHASES are
+# also the env step's spans `env.<phase>`)
 PHASE_VARIANTS = {
     "full": (),
     "physics_only": PHASES,
@@ -239,7 +244,8 @@ def bench_env(task: str, procedural: bool, num_envs: int, iters: int,
               reps: int, steps: int, device: torch.device, ablate=()):
     """Env-steps/s of `task` on one terrain path, the phases `ablate`
     replaced by zeros: (median of the repetitions, the repetitions, warm
-    iterations of the settle loop)."""
+    iterations of the settle loop, the repetitions' profiling row: None
+    outside `profiling.recording()`)."""
     env = make_env(task, num_envs=num_envs, device=device,
                    cfg_patch=dict(terrain=dict(procedural=procedural)))
     env._ablate = frozenset(ablate)
@@ -269,15 +275,17 @@ def bench_env(task: str, procedural: bool, num_envs: int, iters: int,
             stable = 0
         prev = dt
     rates = []
-    for _ in range(max(reps, 1)):
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            state, rew = run(state)
-        _sync(device)
-        rates.append(num_envs * steps * iters / (time.perf_counter() - t0))
+    with profiling.row() as row:
+        for _ in range(max(reps, 1)):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                state, rew = run(state)
+            _sync(device)
+            rates.append(num_envs * steps * iters
+                         / (time.perf_counter() - t0))
     if not bool(torch.isfinite(rew).all()):
         raise RuntimeError(f"{task}: non-finite rewards")
-    return sorted(rates)[len(rates) // 2], rates, settles
+    return sorted(rates)[len(rates) // 2], rates, settles, row
 
 
 def main_env(task: str = "pointfoot_rough", num_envs: int = 4096,
@@ -286,9 +294,9 @@ def main_env(task: str = "pointfoot_rough", num_envs: int = 4096,
     """The procedural headline and the table leg; returns (and prints)
     the benchmark's record."""
     device = resolve_device(device)
-    sps, rates, settles = bench_env(task, True, num_envs, iters, reps,
-                                    steps, device)
-    table_sps, _, table_settles = bench_env(
+    sps, rates, settles, _ = bench_env(task, True, num_envs, iters, reps,
+                                       steps, device)
+    table_sps, _, table_settles, _ = bench_env(
         task, False, num_envs, max(iters // 2, 2), 1, steps, device)
     record = {
         "metric": f"env_steps_per_sec@{num_envs}envs_{task}",
@@ -316,9 +324,15 @@ def main_env_phases(task: str = "pointfoot_rough", num_envs: int = 4096,
     device = resolve_device(device)
     phases, settles = {}, {}
     for name, ablate in PHASE_VARIANTS.items():
-        sps, _, settles[name] = bench_env(task, True, num_envs, iters, 1,
-                                          steps, device, ablate)
+        # only the full step records its spans: each phase's own ms a step
+        with (profiling.recording() if name == "full"
+              else contextlib.nullcontext()):
+            sps, _, settles[name], row = bench_env(
+                task, True, num_envs, iters, 1, steps, device, ablate)
         phases[name] = round(sps, 1)
+        if name == "full":
+            phase_ms = {p: round(ms, 4)
+                        for p, ms in phase_ms_per_step(row).items()}
     full = phases["full"]
     # a variant's rate against the full step's: the µs a step its
     # ablated phases cost
@@ -331,6 +345,7 @@ def main_env_phases(task: str = "pointfoot_rough", num_envs: int = 4096,
         "vs_baseline": round(full / (num_envs * 50.0), 4),
         "phases": phases,
         "phase_gain_us_per_step": gain,
+        "phase_ms_per_step": phase_ms,
         "num_envs": num_envs,
         "conditions": {"task": task, "terrain": "procedural",
                        "iters": iters, "steps_per_iter": steps,

@@ -51,8 +51,27 @@ from pointfoot_tpu_torch.physics.assets import get_model
 from pointfoot_tpu_torch.physics.model import PhysicsParams, PhysicsState
 from pointfoot_tpu_torch.terrain.grid import build_terrain, flat_grid
 from pointfoot_tpu_torch.terrain.procedural import build_procedural
+from pointfoot_tpu_torch.utils import profiling
 
 GRAVITY_VEC = (0.0, 0.0, -1.0)
+# the phases of `step` after the physics, which `_ablate` can replace by
+# zeros (bench --mode env_phases); `step` runs in the span `env.step`,
+# its physics in `env.physics` and each phase in `env.<phase>`
+PHASES = ("reward", "obs", "heights", "reset", "commands", "push")
+STEP_PHASES = ("physics",) + PHASES
+
+
+def phase_ms_per_step(row: dict) -> Dict[str, float]:
+    """Each phase's self milliseconds a step in a row of utils/profiling
+    (its own time: the terrain queries inside it count under `terrain.*`);
+    {} where the row holds no env step."""
+    spans = row["spans"]
+    steps = spans.get("env.step", {}).get("count", 0)
+    out = {}
+    for p in STEP_PHASES if steps else ():
+        s = spans.get(f"env.{p}")
+        out[p] = s["self_s"] / steps * 1e3 if s else 0.0
+    return out
 
 
 @dataclass(frozen=True)
@@ -430,10 +449,12 @@ class LeggedEnv:
         height.is_flat = self.is_plane
         if self.is_plane:
             def surface(x, y):
-                n = torch.zeros(x.shape + (3,), dtype=x.dtype,
-                                device=x.device)
-                n[..., 2] = 1.0
-                return torch.zeros_like(x), n
+                profiling.count("terrain.points", x.numel())
+                with profiling.span("terrain.surface"):
+                    n = torch.zeros(x.shape + (3,), dtype=x.dtype,
+                                    device=x.device)
+                    n[..., 2] = 1.0
+                    return torch.zeros_like(x), n
 
             height.surface_fn = surface
         else:
@@ -544,6 +565,7 @@ class LeggedEnv:
 
     # ------------------------------------------------------------------ step
 
+    @profiling.span("env.step")
     def step(self, state: EnvState, actions: torch.Tensor
              ) -> Tuple[EnvState, StepOutput]:
         """One policy step with masked resets."""
@@ -554,8 +576,9 @@ class LeggedEnv:
         state = state.replace(actions=actions)
 
         # --- physics (decimation substeps)
-        phys, torques, act_carry, sphere_pos = self._physics_rollout(
-            state, actions)
+        with profiling.span("env.physics"):
+            phys, torques, act_carry, sphere_pos = self._physics_rollout(
+                state, actions)
         # curriculum credit: velocity along the commanded direction, with
         # the commands active during this tick's substeps (pre-resample)
         cmd_xy = state.commands[:, :2]
@@ -582,11 +605,12 @@ class LeggedEnv:
         feet = list(self.feet_idx)
         foot_pos = (sphere_pos[:, feet, :] if sphere_pos is not None
                     else self._foot_positions(phys, state.params))
-        if "heights" in self._ablate:
-            measured_heights = phys.base_pos.new_zeros(
-                B, self.num_height_points)
-        else:
-            measured_heights = self._measured_heights(phys)
+        with profiling.span("env.heights"):
+            if "heights" in self._ablate:
+                measured_heights = phys.base_pos.new_zeros(
+                    B, self.num_height_points)
+            else:
+                measured_heights = self._measured_heights(phys)
         contact_force = phys.contact_force  # (B, nc, 3)
         feet_force = contact_force[:, feet, :]
 
@@ -615,31 +639,33 @@ class LeggedEnv:
             last_contacts=contact)
 
         # --- commands: resample / heading controller
-        if "commands" not in self._ablate:
-            state = self._update_commands(state, phys)
+        with profiling.span("env.commands"):
+            if "commands" not in self._ablate:
+                state = self._update_commands(state, phys)
 
         # --- pushes: PointFoot queues a world force for the next substep 0,
         # with F_max = mean base mass * max_push_vel / sim_dt; the
         # LeggedRobot family sets the base velocity
-        push = cfg.domain_rand.push_robots and "push" not in self._ablate
-        if push and cfg.obs_style == "legged":
-            push_step = (state.common_step % self.push_interval) == 0
-            vmax = cfg.domain_rand.max_push_vel_xy
-            vel_xy = self._uniform((B, 2), -vmax, vmax)
-            new_lin = torch.cat([vel_xy, phys.base_lin_vel[:, 2:]], dim=-1)
-            phys = dataclasses.replace(phys, base_lin_vel=torch.where(
-                push_step, new_lin, phys.base_lin_vel))
-            state = state.replace(physics=phys)
-        elif push:
-            push_step = (state.common_step % self.push_interval) == 0
-            mean_mass = torch.mean(self.model.mass[0]
-                                   + state.params.added_mass)
-            fmax = mean_mass * cfg.domain_rand.max_push_vel_xy / cfg.sim.dt
-            raw = self._uniform((B, 3), -fmax, fmax)
-            world = quat_ops.rotate(phys.base_quat, raw)
-            world = world * world.new_tensor([1.0, 1.0, 0.5])
-            state = state.replace(push_force=torch.where(
-                push_step, world, torch.zeros_like(world)))
+        with profiling.span("env.push"):
+            push = cfg.domain_rand.push_robots and "push" not in self._ablate
+            if push and cfg.obs_style == "legged":
+                push_step = (state.common_step % self.push_interval) == 0
+                vmax = cfg.domain_rand.max_push_vel_xy
+                vel_xy = self._uniform((B, 2), -vmax, vmax)
+                new_lin = torch.cat([vel_xy, phys.base_lin_vel[:, 2:]], dim=-1)
+                phys = dataclasses.replace(phys, base_lin_vel=torch.where(
+                    push_step, new_lin, phys.base_lin_vel))
+                state = state.replace(physics=phys)
+            elif push:
+                push_step = (state.common_step % self.push_interval) == 0
+                mean_mass = torch.mean(self.model.mass[0]
+                                       + state.params.added_mass)
+                fmax = mean_mass * cfg.domain_rand.max_push_vel_xy / cfg.sim.dt
+                raw = self._uniform((B, 3), -fmax, fmax)
+                world = quat_ops.rotate(phys.base_quat, raw)
+                world = world * world.new_tensor([1.0, 1.0, 0.5])
+                state = state.replace(push_force=torch.where(
+                    push_step, world, torch.zeros_like(world)))
 
         # --- termination: contact force on base/abad spheres
         term_force = contact_force[:, list(self.termination_idx), :]
@@ -665,11 +691,13 @@ class LeggedEnv:
             first_contact=first_contact, contact_filt=contact_filt,
             feet_air_time=air_for_reward, done=done, time_out=time_out,
             state=state)
-        if "reward" in self._ablate:
-            reward = phys.base_pos.new_zeros(B)
-            term_values = phys.base_pos.new_zeros(B, len(self.reward_names))
-        else:
-            reward, term_values = self._compute_reward(ctx)
+        with profiling.span("env.reward"):
+            if "reward" in self._ablate:
+                reward = phys.base_pos.new_zeros(B)
+                term_values = phys.base_pos.new_zeros(
+                    B, len(self.reward_names))
+            else:
+                reward, term_values = self._compute_reward(ctx)
         # quarantined envs must not leak into a training batch
         clip_r = cfg.rewards.clip_reward
         reward = torch.where(bad, 0.0, torch.nan_to_num(reward))
@@ -698,17 +726,20 @@ class LeggedEnv:
         }
 
         # --- masked reset (curricula inside)
-        if "reset" not in self._ablate:
-            state = self._reset_envs(state, done)
+        with profiling.span("env.reset"):
+            if "reset" not in self._ablate:
+                state = self._reset_envs(state, done)
 
         # --- observations from the post-reset state; the height scan is
         # the one measured before the reset
-        if "obs" in self._ablate:
-            obs = phys.base_pos.new_zeros(B, self.num_obs)
-            priv = (None if self.num_privileged_obs is None else
-                    phys.base_pos.new_zeros(B, self.num_privileged_obs))
-        else:
-            obs, priv = self._compute_observations(state, measured_heights)
+        with profiling.span("env.obs"):
+            if "obs" in self._ablate:
+                obs = phys.base_pos.new_zeros(B, self.num_obs)
+                priv = (None if self.num_privileged_obs is None else
+                        phys.base_pos.new_zeros(B, self.num_privileged_obs))
+            else:
+                obs, priv = self._compute_observations(state,
+                                                       measured_heights)
         state = state.replace(last_actions=state.actions,
                               last_qvel=state.physics.qvel)
         return state, StepOutput(obs, priv, reward, done, extras)

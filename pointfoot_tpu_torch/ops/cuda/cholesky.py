@@ -8,7 +8,8 @@ as (n, B), so a block's loads of one entry are adjacent.
 
 `chol_solve_lanes` is the kernel's wrapper: the kernel for CUDA tensors,
 the plain version (`chol_solve_lanes_plain`, i.e. ops/linalg.chol_solve)
-for CPU tensors.  It counts its launches in `.launches`; `chol_solve` and
+for CPU tensors.  It counts its launches in the counter
+`kernel.chol_solve` of utils/profiling.py; `chol_solve` and
 `chol_solve_best` launch through it.  The kernel has no backward pass: the
 wrapper raises for CUDA inputs that require grad while grad mode is on.
 """
@@ -20,6 +21,7 @@ import torch
 from pointfoot_tpu_torch.ops import linalg
 from pointfoot_tpu_torch.ops.cuda import build
 from pointfoot_tpu_torch.ops.cuda._grad import refuse_grad
+from pointfoot_tpu_torch.utils import profiling
 
 # sizes the kernel is instantiated for: PointFoot (nv 12), the quadrupeds
 # and Cassie (nv 18)
@@ -72,11 +74,8 @@ def chol_solve_lanes(A_t: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(
             f"chol_solve_kernel: CUDA launch failed with error {err}")
-    chol_solve_lanes.launches += 1
+    profiling.count("kernel.chol_solve")
     return x_t
-
-
-chol_solve_lanes.launches = 0
 
 
 def chol_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

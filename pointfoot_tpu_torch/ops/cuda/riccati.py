@@ -12,12 +12,12 @@ bytes of every row.
 
 `srb_lqr_lanes` is the kernel's wrapper: the kernel for CUDA tensors, the
 plain version (`srb_lqr_lanes_plain`) for CPU tensors.  It counts its
-launches in `.launches`; `srb_lqr` stages (B, ...) problems and launches
-through it.  The kernel has no backward pass: the wrapper raises for CUDA
-inputs that require grad while grad mode is on.  `smem_plan` sizes a
-block's shared memory and decides where the gains K_t, d_t of the backward
-sweep live: in the slabs when the block then fits in an SM's shared
-memory, else in a global work space.
+launches in the counter `kernel.srb_lqr` of utils/profiling.py; `srb_lqr`
+stages (B, ...) problems and launches through it.  The kernel has no
+backward pass: the wrapper raises for CUDA inputs that require grad while
+grad mode is on.  `smem_plan` sizes a block's shared memory and decides
+where the gains K_t, d_t of the backward sweep live: in the slabs when the
+block then fits in an SM's shared memory, else in a global work space.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import torch
 from pointfoot_tpu_torch.ops import linalg
 from pointfoot_tpu_torch.ops.cuda import build
 from pointfoot_tpu_torch.ops.cuda._grad import refuse_grad
+from pointfoot_tpu_torch.utils import profiling
 
 N_STATE = 12
 # input sizes the kernel is instantiated for: PointFoot and Cassie (two
@@ -187,11 +188,8 @@ def srb_lqr_lanes(F_t, c_t, L_t, Xd_t, Ud_t, XTd_t, x0_t, fff_t,
     if err != 0:
         raise RuntimeError(
             f"srb_lqr_kernel: CUDA launch failed with error {err}")
-    srb_lqr_lanes.launches += 1
+    profiling.count("kernel.srb_lqr")
     return out
-
-
-srb_lqr_lanes.launches = 0
 
 
 def stage(F, c, L, Xd, Ud, XTd, x0, f_ff):

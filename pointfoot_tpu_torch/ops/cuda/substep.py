@@ -24,7 +24,9 @@ Four wrappers launch the kernels of csrc/substep.cu for CUDA tensors:
 `rollout_step` (one rollout substep), `fk_rows` (collision-sphere xyz),
 `step_rows` (one substep) and `fk_xy_rows` (collision-sphere xy).  For CPU
 tensors they run their plain versions (`..._plain`), built on
-physics/rowdyn.py.  Each wrapper counts its launches in `.launches`.  The
+physics/rowdyn.py.  Each wrapper counts its launches in the counter
+`kernel.<kernel>` of utils/profiling.py (`kernel.rollout_substep`,
+`kernel.fk_from_state`, `kernel.substep`, `kernel.fk_contact_xy`).  The
 kernels have no backward pass: a wrapper raises for CUDA inputs that
 require grad while grad mode is on (`_grad.refuse_grad`).
 """
@@ -41,6 +43,7 @@ from pointfoot_tpu_torch.parallel.mesh import same_rows
 from pointfoot_tpu_torch.physics import rowdyn
 from pointfoot_tpu_torch.physics.contact import query_surface
 from pointfoot_tpu_torch.physics.model import PhysicsParams, PhysicsState
+from pointfoot_tpu_torch.utils import profiling
 
 CONTROL_TYPES = ("P", "V", "T")
 
@@ -268,11 +271,8 @@ def rollout_step(mc: rowdyn.ModelConsts, state_rows: torch.Tensor,
         CONTROL_TYPES.index(control_type), lib.JointVec(default_qpos),
         float(action_scale), float(sim_dt), float(gravity), _stream(dev))
     _launched(err, "rollout_substep_kernel")
-    rollout_step.launches += 1
+    profiling.count("kernel.rollout_substep")
     return out_state, out_extra
-
-
-rollout_step.launches = 0
 
 
 def fk_rows(mc: rowdyn.ModelConsts, state_rows: torch.Tensor
@@ -290,11 +290,8 @@ def fk_rows(mc: rowdyn.ModelConsts, state_rows: torch.Tensor
     err = lib.lib.pf_fk_from_state(state_rows.data_ptr(), out.data_ptr(), B,
                                    _stream(dev))
     _launched(err, "fk_from_state_kernel")
-    fk_rows.launches += 1
+    profiling.count("kernel.fk_from_state")
     return out
-
-
-fk_rows.launches = 0
 
 
 def step_rows(mc: rowdyn.ModelConsts, in_rows: torch.Tensor,
@@ -320,11 +317,8 @@ def step_rows(mc: rowdyn.ModelConsts, in_rows: torch.Tensor,
         None if surf_rows is None else surf_rows.data_ptr(),
         out.data_ptr(), B, float(dt), float(gravity), _stream(dev))
     _launched(err, "substep_kernel")
-    step_rows.launches += 1
+    profiling.count("kernel.substep")
     return out
-
-
-step_rows.launches = 0
 
 
 def fk_xy_rows(mc: rowdyn.ModelConsts, rows: torch.Tensor) -> torch.Tensor:
@@ -341,18 +335,9 @@ def fk_xy_rows(mc: rowdyn.ModelConsts, rows: torch.Tensor) -> torch.Tensor:
     err = lib.lib.pf_fk_contact_xy(rows.data_ptr(), out.data_ptr(), B,
                                    _stream(dev))
     _launched(err, "fk_contact_xy_kernel")
-    fk_xy_rows.launches += 1
+    profiling.count("kernel.fk_contact_xy")
     return out
 
-
-fk_xy_rows.launches = 0
-
-
-def reset_launch_counts():
-    rollout_step.launches = 0
-    fk_rows.launches = 0
-    step_rows.launches = 0
-    fk_xy_rows.launches = 0
 
 
 # ------------------------------------------------------------- public API

@@ -13,6 +13,12 @@ branch of their own.
 device mesh, `env_sharding` of the batch sharding (the slice of rows a rank
 holds), and `replicated` broadcasts a module's parameters and buffers from
 rank 0.
+
+The collectives of the training step (`all_gather_rows`,
+`all_reduce_sum_` and with it `all_reduce_mean_`, `same_rows`) each run
+in a `dp.collective` span (utils/profiling.py) and add the bytes this
+rank sends to the counter `dp.bytes`.  The span times the host: NCCL
+enqueues its work, so the device's time is read from a profiler trace.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 import torch.distributed as dist
 
 from pointfoot_tpu_torch.device import resolve_device
+from pointfoot_tpu_torch.utils import profiling
 
 # a lost rank raises after this long in a collective instead of hanging
 DEFAULT_TIMEOUT_S = 600.0
@@ -187,9 +194,11 @@ def all_gather_rows(tree, mesh: Mesh, dim: int = 0,
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(mesh.world_size)]
         dist.all_gather(parts, x)
+        profiling.count("dp.bytes", x.numel() * x.element_size())
         return torch.cat(parts, dim=dim)
 
-    return _map_rows(gather, tree, dim, batch, replicate)
+    with profiling.span("dp.collective"):
+        return _map_rows(gather, tree, dim, batch, replicate)
 
 
 def all_reduce_sum_(tensors: Sequence[torch.Tensor],
@@ -199,13 +208,15 @@ def all_reduce_sum_(tensors: Sequence[torch.Tensor],
     receives the one result of the reduction."""
     if _alone(mesh) or not tensors:
         return
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat)
-    o = 0
-    for t in tensors:
-        n = t.numel()
-        t.copy_(flat[o:o + n].view_as(t))
-        o += n
+    with profiling.span("dp.collective"):
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.all_reduce(flat)
+        profiling.count("dp.bytes", flat.numel() * flat.element_size())
+        o = 0
+        for t in tensors:
+            n = t.numel()
+            t.copy_(flat[o:o + n].view_as(t))
+            o += n
 
 
 def all_reduce_mean_(tensors: Sequence[torch.Tensor],
@@ -225,9 +236,12 @@ def same_rows(mesh: Mesh, rows: int) -> None:
     collective."""
     if _alone(mesh):
         return
-    t = torch.tensor([rows, -rows], dtype=torch.int64, device=mesh.device)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX)
-    hi, lo = int(t[0]), -int(t[1])
+    with profiling.span("dp.collective"):
+        t = torch.tensor([rows, -rows], dtype=torch.int64,
+                         device=mesh.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        profiling.count("dp.bytes", t.numel() * t.element_size())
+        hi, lo = int(t[0]), -int(t[1])
     if hi != lo:
         raise ValueError(f"rank {mesh.rank} holds {rows} rows, another rank "
                          f"between {lo} and {hi}: the rows are not the "

@@ -45,6 +45,7 @@ from pointfoot_tpu_torch.parallel.mesh import (Mesh, all_reduce_mean_,
                                                all_reduce_sum_)
 from pointfoot_tpu_torch.rl.networks import (ActorCritic, gaussian_entropy,
                                              gaussian_log_prob, map_carry)
+from pointfoot_tpu_torch.utils import profiling
 
 
 class Transition(NamedTuple):
@@ -268,6 +269,7 @@ class PPO:
             return 0, b
         return self.mesh.rank * b, self.mesh.world_size * b
 
+    @profiling.span("ppo.gae")
     def _gae(self, rollout: Transition, last_value):
         return compute_gae(rollout.reward, rollout.done, rollout.time_out,
                            rollout.value, last_value, self.cfg.gamma,
@@ -286,12 +288,18 @@ class PPO:
                     torch.randperm(n, generator=self.generator,
                                    device=self.device))
             for i in range(cfg.num_mini_batches):
-                _, metrics = minibatch(perm[i * mb_size:(i + 1) * mb_size])
-                metrics["lr_intra"] = torch.tensor(
-                    self.learning_rate, device=self.device)
-                self._sgd_step(float(metrics["kl"]))
-                for k in self.METRICS:
-                    history[k].append(metrics[k])
+                with profiling.span("ppo.minibatch"):
+                    _, metrics = minibatch(
+                        perm[i * mb_size:(i + 1) * mb_size])
+                    metrics["lr_intra"] = torch.tensor(
+                        self.learning_rate, device=self.device)
+                    # the adaptive rule needs the KL on the host: the
+                    # host waits here for the card, once a minibatch
+                    with profiling.span("host.wait"):
+                        kl = float(metrics["kl"])
+                    self._sgd_step(kl)
+                    for k in self.METRICS:
+                        history[k].append(metrics[k])
         self.minibatch_metrics = {k: torch.stack(v)
                                   for k, v in history.items()}
         out = {k: v.mean() for k, v in self.minibatch_metrics.items()}

@@ -36,6 +36,12 @@ global values on every rank; only rank 0 logs, prints and writes, and
 `save` is a collective that gathers the env state so that rank 0 writes
 the global batch.
 
+Tracing (utils/profiling.py): the rollout runs in the span
+`runner.rollout`, the update in `runner.update`, and each
+`train_iteration` / `train_iteration_recurrent` closes one row of its
+spans and counters inside `profiling.recording()`, which `learn` turns
+on; `learn`'s log lines carry the row (`row_scalars`).
+
 `learn` honours the bench lock of utils/benchlock.py (the JAX runner's
 handshake): rank 0 registers as the live trainer, and every rank checks
 the lock before the first iteration and at the top of each, pausing while
@@ -56,7 +62,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from pointfoot_tpu_torch.envs.config import TrainCfg
-from pointfoot_tpu_torch.envs.legged_env import EnvState
+from pointfoot_tpu_torch.envs.legged_env import EnvState, phase_ms_per_step
 from pointfoot_tpu_torch.parallel.mesh import (Mesh, all_reduce_mean_,
                                                all_reduce_sum_, replicated,
                                                shard_batch)
@@ -66,7 +72,7 @@ from pointfoot_tpu_torch.rl.networks import (ActorCritic,
                                              map_carry,
                                              sample_action)
 from pointfoot_tpu_torch.rl.ppo import PPO, RecurrentPPO, Transition
-from pointfoot_tpu_torch.utils import benchlock
+from pointfoot_tpu_torch.utils import benchlock, profiling
 
 INFO_KEYS = ("episode_rew", "num_resets", "terrain_level", "max_command_x",
              "num_nan_quarantined")
@@ -176,6 +182,7 @@ class OnPolicyRunner:
             dst.copy_(src)
         return self._rollout(env_state, obs, priv_obs, carry, noise)
 
+    @profiling.span("runner.rollout")
     def _rollout(self, env_state, obs, priv_obs, carry, noise):
         net = self.network
         env = self.env
@@ -225,13 +232,17 @@ class OnPolicyRunner:
                         noise=None, perms=None):
         """Rollout, then the PPO update.  `noise` and `perms` (one
         permutation per epoch) replace the runner's and the PPO's draws.
-        Returns (env state, obs, priv_obs, metrics)."""
-        env_state, obs, priv_obs, rollout, infos = self.rollout(
-            env_state, obs, priv_obs, noise)
-        metrics = self.update(rollout, obs, priv_obs, perms)
-        return self._finish_iteration(env_state, obs, priv_obs, rollout,
-                                      infos, metrics)
+        Returns (env state, obs, priv_obs, metrics).  Inside
+        `profiling.recording()` it closes one row of the iteration's spans
+        and counters."""
+        with profiling.row():
+            env_state, obs, priv_obs, rollout, infos = self.rollout(
+                env_state, obs, priv_obs, noise)
+            metrics = self.update(rollout, obs, priv_obs, perms)
+            return self._finish_iteration(env_state, obs, priv_obs, rollout,
+                                          infos, metrics)
 
+    @profiling.span("runner.update")
     def update(self, rollout: Transition, obs, priv_obs, perms=None):
         """The PPO update of a rollout that ended at `obs` / `priv_obs`,
         bootstrapped from their value."""
@@ -246,13 +257,16 @@ class OnPolicyRunner:
         through the rollout and on to the next iteration, and the update
         replays each minibatch from the window's starting carry.  Returns
         (env state, obs, priv_obs, carry, metrics)."""
-        env_state, obs, priv_obs, carry, rollout, infos = \
-            self.rollout_recurrent(env_state, obs, priv_obs, carry, noise)
-        metrics = self.update_recurrent(rollout, obs, priv_obs, carry, perms)
-        env_state, obs, priv_obs, metrics = self._finish_iteration(
-            env_state, obs, priv_obs, rollout, infos, metrics)
+        with profiling.row():
+            env_state, obs, priv_obs, carry, rollout, infos = \
+                self.rollout_recurrent(env_state, obs, priv_obs, carry, noise)
+            metrics = self.update_recurrent(rollout, obs, priv_obs, carry,
+                                            perms)
+            env_state, obs, priv_obs, metrics = self._finish_iteration(
+                env_state, obs, priv_obs, rollout, infos, metrics)
         return env_state, obs, priv_obs, carry, metrics
 
+    @profiling.span("runner.update")
     def update_recurrent(self, rollout: Transition, obs, priv_obs, carry,
                          perms=None):
         """The RecurrentPPO update of the window `rollout_recurrent` last
@@ -304,7 +318,9 @@ class OnPolicyRunner:
         `seed` (the config's by default), with random episode lengths drawn
         from the env's generator; with one it goes on from the runner's
         current network and optimizer (a resumed run).  Returns the final
-        env state.  With a mesh every rank calls it."""
+        env state.  With a mesh every rank calls it.  The loop runs inside
+        `profiling.recording()`, and each logged line carries the spans of
+        its iteration's row (`row_scalars`)."""
         env = self.env
         if env_state is None:
             env_state = self.init(self.cfg.seed if seed is None else seed,
@@ -322,32 +338,38 @@ class OnPolicyRunner:
             benchlock.trainer_register()
         try:
             benchlock.trainer_heartbeat()
+            if self.is_main and self.log_dir:
+                # tensorboard's import takes seconds: before the clock
+                self._open_writer()
             t_start = time.time()
             drain = None
-            for it in range(num_iterations):
-                t_start += benchlock.trainer_heartbeat(drain=drain)
-                if self.recurrent:
-                    env_state, obs, priv_obs, carry, metrics = \
-                        self.train_iteration_recurrent(env_state, obs,
-                                                       priv_obs, carry)
-                else:
-                    env_state, obs, priv_obs, metrics = \
-                        self.train_iteration(env_state, obs, priv_obs)
-                if self.device.type == "cuda":
-                    # the last metrics are on the card: wait for them
-                    # before acking a bench
-                    drain = functools.partial(torch.cuda.synchronize,
-                                              self.device)
-                self.current_iteration += 1
-                if self.is_main and (it % log_every == 0
-                                     or it == num_iterations - 1):
-                    m = {k: v.cpu() for k, v in metrics.items()}
-                    elapsed = time.time() - t_start
-                    self._log(self.current_iteration, m,
-                              steps_per_iter * (it + 1) / max(elapsed, 1e-9))
-                if (save_interval > 0 and self.log_dir
-                        and self.current_iteration % save_interval == 0):
-                    self.save(env_state)
+            with profiling.recording():
+                for it in range(num_iterations):
+                    t_start += benchlock.trainer_heartbeat(drain=drain)
+                    if self.recurrent:
+                        env_state, obs, priv_obs, carry, metrics = \
+                            self.train_iteration_recurrent(env_state, obs,
+                                                           priv_obs, carry)
+                    else:
+                        env_state, obs, priv_obs, metrics = \
+                            self.train_iteration(env_state, obs, priv_obs)
+                    if self.device.type == "cuda":
+                        # the last metrics are on the card: wait for them
+                        # before acking a bench
+                        drain = functools.partial(torch.cuda.synchronize,
+                                                  self.device)
+                    self.current_iteration += 1
+                    if self.is_main and (it % log_every == 0
+                                         or it == num_iterations - 1):
+                        m = {k: v.cpu() for k, v in metrics.items()}
+                        elapsed = time.time() - t_start
+                        self._log(self.current_iteration, m,
+                                  steps_per_iter * (it + 1)
+                                  / max(elapsed, 1e-9),
+                                  profiling.last_row())
+                    if (save_interval > 0 and self.log_dir
+                            and self.current_iteration % save_interval == 0):
+                        self.save(env_state)
             if self.log_dir:
                 self.save(env_state)
         finally:
@@ -357,7 +379,8 @@ class OnPolicyRunner:
 
     # -------------------------------------------------------------- logging
 
-    def _log(self, it: int, m: Dict, steps_per_sec: float):
+    def _log(self, it: int, m: Dict, steps_per_sec: float,
+             row: Optional[dict] = None):
         scalars = {
             "it": it,
             "steps_per_sec": round(float(steps_per_sec), 1),
@@ -375,7 +398,13 @@ class OnPolicyRunner:
         for name, val in zip(self.env.reward_names,
                              m["episode_rew"].tolist()):
             scalars[f"rew_{name}"] = float(val)
-        print(f"it {it:6d} | {scalars['steps_per_sec']:9.0f} steps/s | "
+        split = ""
+        if row is not None:
+            scalars.update(row_scalars(row))
+            split = (f" | roll {scalars['rollout_s']:.3f} s"
+                     f" | upd {scalars['update_s']:.3f} s"
+                     f" | wait {scalars['host_wait_s']:.3f} s")
+        print(f"it {it:6d} | {scalars['steps_per_sec']:9.0f} steps/s{split} | "
               f"rew {scalars['mean_reward']:8.4f} | "
               f"eplen {scalars['mean_episode_length']:6.1f} | "
               f"kl {scalars['kl']:.4f} | lr {scalars['lr']:.1e}", flush=True)
@@ -385,14 +414,19 @@ class OnPolicyRunner:
                 f.write(json.dumps(scalars) + "\n")
             self._tb_log(it, scalars)
 
-    def _tb_log(self, it: int, scalars: Dict):
+    def _open_writer(self):
+        """The TensorBoard writer, opened once (False without tensorboard,
+        which is optional)."""
         if self._writer is None:
             try:
                 from torch.utils.tensorboard import SummaryWriter
-            except ImportError:  # tensorboard is optional
+            except ImportError:
                 self._writer = False
             else:
                 self._writer = SummaryWriter(self.log_dir)
+
+    def _tb_log(self, it: int, scalars: Dict):
+        self._open_writer()
         if self._writer:
             for k, v in scalars.items():
                 if k != "it":
@@ -477,6 +511,35 @@ class OnPolicyRunner:
             return carry, mean
 
         return policy, net.initialize_carry
+
+
+def row_scalars(row: dict) -> Dict[str, float]:
+    """What `learn` logs of an iteration's row (utils/profiling.py), by
+    the host's clock: `rollout_s`, `update_s` and `host_wait_s` (the
+    update's waits for the card); where the env queried terrain,
+    `terrain_ms_per_step` and `terrain_ns_per_point`; each env phase's
+    self ms a step, `env_<phase>_ms`; with DP collectives, `collective_s`
+    and `dp_bytes` (this rank's)."""
+    spans, counts = row["spans"], row["counters"]
+
+    def total(name):
+        return spans[name]["total_s"] if name in spans else 0.0
+
+    out = {"rollout_s": total("runner.rollout"),
+           "update_s": total("runner.update"),
+           "host_wait_s": total("host.wait")}
+    steps = spans.get("env.step", {}).get("count", 0)
+    terrain_s = total("terrain.surface") + total("terrain.scan")
+    points = counts.get("terrain.points", 0)
+    if steps and points:
+        out["terrain_ms_per_step"] = terrain_s / steps * 1e3
+        out["terrain_ns_per_point"] = terrain_s / points * 1e9
+    for phase, ms in phase_ms_per_step(row).items():
+        out[f"env_{phase}_ms"] = ms
+    if "dp.collective" in spans:
+        out["collective_s"] = total("dp.collective")
+        out["dp_bytes"] = counts.get("dp.bytes", 0)
+    return out
 
 
 class _StatefulPolicy:

@@ -12,7 +12,9 @@ height and unit normal).  The packed lookup tables those reads index are
 built once, at construction: the JAX package derives them in the trace and
 XLA hoists them out of the step, where an eager port would rebuild a
 2.7 M-cell table on every query.  `flat_grid` is the plane terrain as a
-degenerate grid of zeros.
+degenerate grid of zeros.  `height_scan_at` and `surface_at` run in the
+spans `terrain.scan` and `terrain.surface` and count their points in
+`terrain.points` (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from pointfoot_tpu_torch.terrain import heightfield as hfgen
+from pointfoot_tpu_torch.utils import profiling
 
 
 @dataclass(frozen=True)
@@ -122,17 +125,22 @@ class TerrainGrid:
                        ) -> torch.Tensor:
         """The height-scan lookup: min of the cell and its +x and +y
         neighbours."""
-        return self._min3[self._cell_index(x, y)[4]]
+        profiling.count("terrain.points", x.numel())
+        with profiling.span("terrain.scan"):
+            return self._min3[self._cell_index(x, y)[4]]
 
     def surface_at(self, x: torch.Tensor, y: torch.Tensor):
         """(height, unit normal) of the cell's contact plane."""
-        x0, y0, px, py, idx = self._cell_index(x, y)
-        q = self._plane[idx]
-        h00, gx, gy = q[..., 0], q[..., 1], q[..., 2]
-        h = h00 + gx * (px - x0) * self.hscale + gy * (py - y0) * self.hscale
-        n = torch.stack([-gx, -gy, torch.ones_like(gx)], dim=-1)
-        n = n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)
-        return h, n
+        profiling.count("terrain.points", x.numel())
+        with profiling.span("terrain.surface"):
+            x0, y0, px, py, idx = self._cell_index(x, y)
+            q = self._plane[idx]
+            h00, gx, gy = q[..., 0], q[..., 1], q[..., 2]
+            h = (h00 + gx * (px - x0) * self.hscale
+                 + gy * (py - y0) * self.hscale)
+            n = torch.stack([-gx, -gy, torch.ones_like(gx)], dim=-1)
+            n = n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+            return h, n
 
 
 def _derived_fields(height: np.ndarray, hscale: float):

@@ -7,6 +7,10 @@ trained on this realization.  PyTorch has no logical right shift for
 uint32 on the CPU, so the hash runs in int64 holding values in [0, 2^32)
 and masks after every multiply; `_mul32` keeps each product inside int64.
 The same code runs on python ints.
+
+The env's two queries, `surface_at` and `height_scan_at`, run in the
+spans `terrain.surface` and `terrain.scan` and count their points in
+`terrain.points` (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import numpy as np
 import torch
 
 from pointfoot_tpu_torch.terrain.grid import TerrainCfg
+from pointfoot_tpu_torch.utils import profiling
 
 _M32 = 0xFFFFFFFF
 
@@ -355,20 +360,24 @@ class ProceduralTerrain:
                 + h01 * (1 - fx) * fy + h11 * fx * fy)
 
     def height_scan_at(self, x, y):
-        x0, y0, _, _ = self._cell(x, y)
-        h00, h10, h01 = self._cells(x0, y0, ((0, 0), (1, 0), (0, 1)))
-        return torch.minimum(torch.minimum(h00, h10), h01)
+        profiling.count("terrain.points", x.numel())
+        with profiling.span("terrain.scan"):
+            x0, y0, _, _ = self._cell(x, y)
+            h00, h10, h01 = self._cells(x0, y0, ((0, 0), (1, 0), (0, 1)))
+            return torch.minimum(torch.minimum(h00, h10), h01)
 
     def surface_at(self, x, y):
-        x0, y0, px, py = self._cell(x, y)
-        h00, h10, h01 = self._cells(x0, y0, ((0, 0), (1, 0), (0, 1)))
-        gx = (h10 - h00) / self.hscale
-        gy = (h01 - h00) / self.hscale
-        h = (h00 + gx * (px - x0) * self.hscale
-             + gy * (py - y0) * self.hscale)
-        n = torch.stack([-gx, -gy, torch.ones_like(gx)], dim=-1)
-        n = n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)
-        return h, n
+        profiling.count("terrain.points", x.numel())
+        with profiling.span("terrain.surface"):
+            x0, y0, px, py = self._cell(x, y)
+            h00, h10, h01 = self._cells(x0, y0, ((0, 0), (1, 0), (0, 1)))
+            gx = (h10 - h00) / self.hscale
+            gy = (h01 - h00) / self.hscale
+            h = (h00 + gx * (px - x0) * self.hscale
+                 + gy * (py - y0) * self.hscale)
+            n = torch.stack([-gx, -gy, torch.ones_like(gx)], dim=-1)
+            n = n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+            return h, n
 
 
 def build_procedural(cfg: TerrainCfg, seed: int = 0,

@@ -14,7 +14,10 @@ rows), and each rank writes <dir>/out<rank>.pt.  Jobs:
   on shards of unequal size, which must raise;
 - iteration: one `train_iteration` (or `train_iteration_recurrent`) of a
   runner on the mesh from a given PPO state, env state, observations,
-  carry, action noise and permutations; the rollout and state gathered.
+  carry, action noise and permutations; the rollout and state gathered;
+- traced: one `train_iteration` of a fresh runner on the mesh inside
+  `profiling.recording()`: its row, and the shapes a hand count of its
+  collectives needs.
 """
 
 import os
@@ -31,6 +34,7 @@ from pointfoot_tpu_torch.envs.legged_env import EnvState  # noqa: E402
 from pointfoot_tpu_torch.ops.cuda import substep as sp  # noqa: E402
 from pointfoot_tpu_torch.parallel import mesh as pm  # noqa: E402
 from pointfoot_tpu_torch.rl.networks import map_carry  # noqa: E402
+from pointfoot_tpu_torch.utils import profiling  # noqa: E402
 from pointfoot_tpu_torch.utils.registry import (get_cfgs,  # noqa: E402
                                                 make_alg_runner, make_env)
 
@@ -108,6 +112,25 @@ def iteration(mesh, inp):
         local_rows=env.num_envs)
 
 
+def traced(mesh, inp):
+    spec = inp["spec"]
+    env = make_env(spec["task"], num_envs=spec["num_envs"], device="cpu",
+                   cfg_patch=spec["patch"])
+    runner = make_alg_runner(env, spec["task"], train_cfg=_train_cfg(spec),
+                             mesh=mesh)
+    es = runner.init(0)
+    es, out = env.step(es, torch.zeros(env.num_envs, env.num_actions))
+    with profiling.recording():
+        runner.train_iteration(es, out.obs, out.privileged_obs)
+    alg = runner.cfg.algorithm
+    return dict(row=profiling.last_row(),
+                params=sum(p.numel() for p in runner.network.parameters()),
+                rewards=len(env.reward_names),
+                steps=runner.cfg.runner.num_steps_per_env,
+                minibatches=alg.num_learning_epochs * alg.num_mini_batches,
+                curriculum=env.cfg.commands.curriculum)
+
+
 def env_rows(env):
     return pm.env_sharding(env.shard_mesh, env.global_num_envs)
 
@@ -150,6 +173,8 @@ def main():
         out = rollout(mesh, inp)
     elif job == "iteration":
         out = iteration(mesh, inp)
+    elif job == "traced":
+        out = traced(mesh, inp)
     else:
         raise SystemExit(f"unknown job {job}")
     torch.save(out, os.path.join(tmp, f"out{rank}.pt"))

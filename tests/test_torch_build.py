@@ -15,6 +15,7 @@ import torch
 from pointfoot_tpu_torch.ops.cuda import build
 from pointfoot_tpu_torch.ops.cuda import substep as sp
 from pointfoot_tpu_torch.physics.assets import get_model
+from pointfoot_tpu_torch.utils import profiling
 
 
 @pytest.fixture(scope="module")
@@ -309,13 +310,13 @@ def test_cholesky_cpu_route_is_linalg_chol_solve(n, num):
     A = torch.tensor(M @ M.transpose(0, 2, 1) + n * np.eye(n, dtype=np.float32))
     b = torch.tensor(rng.normal(size=(num, n)).astype(np.float32))
     want = linalg.chol_solve(A, b)
-    before = ch.chol_solve_lanes.launches
+    before = profiling.counter("kernel.chol_solve")
     x_t = ch.chol_solve_lanes(A.reshape(num, n * n).t().contiguous(),
                               b.t().contiguous())
     assert torch.equal(x_t.t(), want)
     assert torch.equal(ch.chol_solve(A, b), want)
     assert torch.equal(ch.chol_solve_best(A, b), want)
-    assert ch.chol_solve_lanes.launches == before
+    assert profiling.counter("kernel.chol_solve") == before
 
 
 def test_float_literals_are_the_float32_torch_rounds_to():

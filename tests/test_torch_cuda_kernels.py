@@ -13,6 +13,7 @@ import torch
 
 from pointfoot_tpu_torch.ops.cuda import substep as sp
 from pointfoot_tpu_torch.physics.assets import get_model
+from pointfoot_tpu_torch.utils import profiling
 
 from _torch_parity import srb_lqr_problem
 
@@ -89,9 +90,9 @@ def test_rollout_step_kernel_matches_plain(rows, control_type, surface,
     mc, (state, ctrl, surf) = rows
     args = (mc, state, ctrl, surf if surface else None, push,
             _default_qpos(mc.nj), 0.5, control_type, 0.005, 9.81)
-    before = sp.rollout_step.launches
+    before = profiling.counter("kernel.rollout_substep")
     ks, ke = sp.rollout_step(*args)
-    assert sp.rollout_step.launches == before + 1
+    assert profiling.counter("kernel.rollout_substep") == before + 1
     ps, pe = sp.rollout_step_plain(*args)
     torch.cuda.synchronize()
     _assert_rollout_close(mc, ks, ke, ps, pe)
@@ -140,9 +141,9 @@ def test_fk_kernel_matches_plain(fk_state, num):
     last block with idle groups."""
     mc, state = fk_state
     state = _columns(state, num)
-    before = sp.fk_rows.launches
+    before = profiling.counter("kernel.fk_from_state")
     got = sp.fk_rows(mc, state)
-    assert sp.fk_rows.launches == before + 1
+    assert profiling.counter("kernel.fk_from_state") == before + 1
     again = sp.fk_rows(mc, state)
     want = sp.fk_rows_plain(mc, state)
     torch.cuda.synchronize()
@@ -210,9 +211,9 @@ def _assert_substep_close(mc, got, want):
 def test_substep_kernel_matches_plain(substep_rows, surface):
     mc, (rows, surf) = substep_rows
     s = surf if surface else None
-    before = sp.step_rows.launches
+    before = profiling.counter("kernel.substep")
     got = sp.step_rows(mc, rows, s, 0.005, 9.81)
-    assert sp.step_rows.launches == before + 1
+    assert profiling.counter("kernel.substep") == before + 1
     want = sp.step_rows_plain(mc, rows, s, 0.005, 9.81)
     torch.cuda.synchronize()
     _assert_substep_close(mc, got, want)
@@ -250,9 +251,9 @@ def test_fk_xy_kernel_matches_plain(substep_rows, num):
     two launches agree bit for bit."""
     mc, (rows, _) = substep_rows
     fk_in = _columns(torch.cat([rows[:7], rows[13:13 + mc.nj]]), num)
-    before = sp.fk_xy_rows.launches
+    before = profiling.counter("kernel.fk_contact_xy")
     got = sp.fk_xy_rows(mc, fk_in)
-    assert sp.fk_xy_rows.launches == before + 1
+    assert profiling.counter("kernel.fk_contact_xy") == before + 1
     again = sp.fk_xy_rows(mc, fk_in)
     want = sp.fk_xy_rows_plain(mc, fk_in)
     torch.cuda.synchronize()
@@ -278,9 +279,9 @@ def test_cholesky_kernel_matches_plain(n, num):
     dev = torch.device("cuda")
     A_t = torch.tensor(A.reshape(num, n * n).T.copy(), device=dev)
     b_t = torch.tensor(b.T.copy(), device=dev)
-    before = cholesky.chol_solve_lanes.launches
+    before = profiling.counter("kernel.chol_solve")
     x_t = cholesky.chol_solve_lanes(A_t, b_t)
-    assert cholesky.chol_solve_lanes.launches == before + 1
+    assert profiling.counter("kernel.chol_solve") == before + 1
     again = cholesky.chol_solve_lanes(A_t, b_t)
     want = cholesky.chol_solve_lanes_plain(A_t, b_t)
     torch.cuda.synchronize()
@@ -313,9 +314,9 @@ def test_srb_lqr_kernel_matches_plain(m, num):
     dev = torch.device("cuda")
     prob = [torch.tensor(a, device=dev) for a in srb_lqr_problem(num, m, m)]
     staged = riccati.stage(*prob)
-    before = riccati.srb_lqr_lanes.launches
+    before = profiling.counter("kernel.srb_lqr")
     got = riccati.srb_lqr_lanes(*staged, T)
-    assert riccati.srb_lqr_lanes.launches == before + 1
+    assert profiling.counter("kernel.srb_lqr") == before + 1
     want = riccati.srb_lqr_lanes_plain(*staged, T)
     torch.cuda.synchronize()
     assert got.shape == (T, m, num)
@@ -373,8 +374,9 @@ def test_srb_lqr_wrapper_rejects_what_the_kernel_does_not_take():
 # ------------------------------------------- forward-only, as the TPU's
 
 def _grad_cases():
-    """(wrapper, a call of it with one input scaled by g) for each of the
-    six wrappers, on CUDA inputs of the fixtures' kinds."""
+    """(the wrapper's launch counter, a call of it with one input scaled
+    by g) for each of the six wrappers, on CUDA inputs of the fixtures'
+    kinds."""
     from pointfoot_tpu_torch.ops.cuda import cholesky, riccati
 
     dev = torch.device("cuda")
@@ -402,19 +404,19 @@ def _grad_cases():
                              for a in srb_lqr_problem(num, 6, 0)))
     qdef = (0.0,) * nj
     return {
-        "rollout_step": (sp.rollout_step, lambda g: sp.rollout_step(
+        "rollout_step": ("kernel.rollout_substep", lambda g: sp.rollout_step(
             mc, state, (ctrl * g).contiguous(), None, True, qdef, 0.5, "P",
             0.005, 9.81)),
-        "fk_rows": (sp.fk_rows,
+        "fk_rows": ("kernel.fk_from_state",
                     lambda g: sp.fk_rows(mc, (state * g).contiguous())),
-        "step_rows": (sp.step_rows, lambda g: sp.step_rows(
+        "step_rows": ("kernel.substep", lambda g: sp.step_rows(
             mc, (sub_in * g).contiguous(), None, 0.005, 9.81)),
-        "fk_xy_rows": (sp.fk_xy_rows, lambda g: sp.fk_xy_rows(
+        "fk_xy_rows": ("kernel.fk_contact_xy", lambda g: sp.fk_xy_rows(
             mc, (fk_in * g).contiguous())),
-        "chol_solve_lanes": (cholesky.chol_solve_lanes,
+        "chol_solve_lanes": ("kernel.chol_solve",
                              lambda g: cholesky.chol_solve_lanes(
                                  A_t, (b_t * g).contiguous())),
-        "srb_lqr_lanes": (riccati.srb_lqr_lanes,
+        "srb_lqr_lanes": ("kernel.srb_lqr",
                           lambda g: riccati.srb_lqr_lanes(
                               (staged[0] * g).contiguous(), *staged[1:], 4)),
     }
@@ -429,16 +431,16 @@ def test_wrapper_refuses_grad_and_runs_under_no_grad(name):
     the same call launches the kernel once."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    wrapper, call = _grad_cases()[name]
+    launches, call = _grad_cases()[name]
     g = torch.ones(1, device="cuda", requires_grad=True)
-    before = wrapper.launches
+    before = profiling.counter(launches)
     with pytest.raises(RuntimeError, match="has no backward pass"):
         call(g)
-    assert wrapper.launches == before
+    assert profiling.counter(launches) == before
     with torch.no_grad():
         out = call(g)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    assert profiling.counter(launches) == before + 1
     first = out[0] if isinstance(out, tuple) else out
     assert first.grad_fn is None and not first.requires_grad
 
@@ -453,14 +455,14 @@ def test_wrapper_refuses_a_forward_tangent(name):
         pytest.skip("needs a CUDA device")
     import torch.autograd.forward_ad as fwAD
 
-    wrapper, call = _grad_cases()[name]
-    before = wrapper.launches
+    launches, call = _grad_cases()[name]
+    before = profiling.counter(launches)
     with fwAD.dual_level(), torch.no_grad():
         g = fwAD.make_dual(torch.ones(1, device="cuda"),
                            torch.ones(1, device="cuda"))
         with pytest.raises(RuntimeError, match="forward-mode tangent"):
             call(g)
-    assert wrapper.launches == before
+    assert profiling.counter(launches) == before
 
 
 # ------------------------------------------ the gait-MPC and iLQR paths
@@ -487,15 +489,15 @@ def test_gait_tick_solves_with_the_srb_lqr_kernel():
     gs = ctrl.init(num, phys)
     cmd = torch.tensor([0.4, 0.0, 0.0], device="cuda").expand(num, 3)
     prob = ctrl.srb_tick_problem(phys, ctrl.placement(phys, cmd, gs))
-    before = riccati.srb_lqr_lanes.launches
+    before = profiling.counter("kernel.srb_lqr")
     f0 = ctrl.solve_first_force(prob)
     want = srb.sequential_srb_lqr(*prob, horizon=ctrl.srb.horizon)[0][:, 0]
     torch.cuda.synchronize()
-    assert riccati.srb_lqr_lanes.launches == before + 1
+    assert profiling.counter("kernel.srb_lqr") == before + 1
     torch.testing.assert_close(f0, want, rtol=2e-3, atol=2e-3)
     tau, gs = ctrl.control(phys, cmd, gs)
     torch.cuda.synchronize()
-    assert riccati.srb_lqr_lanes.launches == before + 2
+    assert profiling.counter("kernel.srb_lqr") == before + 2
     assert bool(torch.isfinite(tau).all())
 
 

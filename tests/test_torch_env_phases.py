@@ -150,6 +150,10 @@ def test_bench_env_phases_record(capsys):
         if name != "full":
             assert rec["phase_gain_us_per_step"][name] == pytest.approx(
                 2 * (1 / rec["value"] - 1 / sps) * 1e6, abs=0.1)
+    # the full step's spans: the physics' and each phase's own ms a step
+    assert set(rec["phase_ms_per_step"]) == {"physics", *bench.PHASES}
+    assert all(v >= 0 for v in rec["phase_ms_per_step"].values())
+    assert rec["phase_ms_per_step"]["physics"] > 0
     cond = rec["conditions"]
     assert cond["terrain"] == "procedural" and cond["card"] == "cpu"
     assert cond["trainer"] == "no_trainer"

@@ -23,6 +23,7 @@ from pointfoot_tpu_torch.ops.cuda import riccati as rk
 from pointfoot_tpu_torch.ops.cuda import substep as sp
 from pointfoot_tpu_torch.ops.cuda._grad import refuse_grad
 from pointfoot_tpu_torch.physics.assets import get_model
+from pointfoot_tpu_torch.utils import profiling
 
 WRAPPERS = [(sp.rollout_step, "rollout_substep_kernel"),
             (sp.fk_rows, "fk_from_state_kernel"),
@@ -107,7 +108,7 @@ def test_each_wrapper_refuses_grad_before_its_first_allocation(fn, kernel):
     branch = _cuda_branch(fn)
     call = branch.index(f'refuse_grad("{kernel}", "{fn.__name__}_plain"')
     assert call < branch.index("torch.empty")
-    assert call < branch.index(".launches += 1")
+    assert call < branch.index('profiling.count("kernel.')
     assert f"{fn.__name__}_plain(" not in branch
 
 
@@ -230,9 +231,10 @@ def test_plain_fk_rows_gradient_matches_jax(robot):
     rest = torch.zeros(6 + 2 * nj, B)  # velocities, qvel, last_qvel
     state = torch.cat([torch.tensor(pos), t_quat, rest[:6], t_qpos,
                        rest[6:]])
-    before = sp.fk_rows.launches
+    before = profiling.counter("kernel.fk_from_state")
     xyz = sp.fk_rows(mc, state)
-    assert sp.fk_rows.launches == before and xyz.grad_fn is not None
+    assert profiling.counter("kernel.fk_from_state") == before
+    assert xyz.grad_fn is not None
     xyz[2::3].sum().backward()
     want_quat, want_qpos = _jax_grad(robot, pos, quat, qpos)
     assert np.abs(want_qpos).max() > 0.05  # the legs move the spheres' z

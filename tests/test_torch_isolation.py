@@ -361,7 +361,7 @@ def test_bench_record_and_unported_modes(capsys):
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == rec
     assert set(rec) == {"metric", "value", "unit", "vs_baseline",
                         "conditions", "phases", "phase_gain_us_per_step",
-                        "num_envs"}
+                        "phase_ms_per_step", "num_envs"}
     assert len(rec["phases"]) == 6 and rec["conditions"]["card"] == "cpu"
 
 

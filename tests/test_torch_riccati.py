@@ -14,6 +14,7 @@ import torch
 from pointfoot_tpu.mpc import riccati as jric
 from pointfoot_tpu_torch.mpc import riccati as tric
 from pointfoot_tpu_torch.ops.cuda import riccati as rk
+from pointfoot_tpu_torch.utils import profiling
 
 from _torch_parity import srb_lqr_problem
 
@@ -80,10 +81,11 @@ def test_srb_lqr_lanes_is_plain_on_cpu(srb):
     assert [tuple(t.shape) for t in staged] == [
         (144, 8), (12, 8), (12 * m, 8), (12, 8), (m, 8), (12, 8), (12, 8),
         (m, 8)]
-    before = rk.srb_lqr_lanes.launches
+    before = profiling.counter("kernel.srb_lqr")
     got = rk.srb_lqr_lanes(*staged, T_SRB)
     want = rk.srb_lqr_lanes_plain(*staged, T_SRB)
-    assert rk.srb_lqr_lanes.launches == before  # no kernel on the CPU
+    # no kernel on the CPU
+    assert profiling.counter("kernel.srb_lqr") == before
     assert torch.equal(got, want)
     assert got.shape == (T_SRB, m, 8)
 

@@ -31,6 +31,7 @@ from _torch_parity import (ROUGH_PATCH, adam_bound, export_fields,
                            jax_minibatches)
 from pointfoot_tpu.utils.registry import task_registry
 from pointfoot_tpu_torch import bench, train
+from pointfoot_tpu_torch.envs.legged_env import STEP_PHASES
 from pointfoot_tpu_torch.rl.ppo import Transition
 from pointfoot_tpu_torch.utils import convert
 from pointfoot_tpu_torch.utils.registry import (get_cfgs, make_alg_runner,
@@ -253,6 +254,16 @@ def test_learn_symmetric_critic_task(tmp_path):
     assert [m["it"] for m in lines] == [1, 2]
     assert all(np.isfinite(m["kl"]) and np.isfinite(m["mean_reward"])
                for m in lines)
+    # the row of each logged iteration (utils/profiling.py): the rollout,
+    # update and host-wait split, the terrain and each env phase; no mesh,
+    # no collectives
+    phases = [f"env_{p}_ms" for p in STEP_PHASES]
+    for m in lines:
+        assert m["rollout_s"] > 0 and m["update_s"] > 0
+        assert 0 < m["host_wait_s"] < m["update_s"]
+        assert m["terrain_ms_per_step"] > 0 and m["terrain_ns_per_point"] > 0
+        assert all(m[k] >= 0 for k in phases) and m["env_physics_ms"] > 0
+        assert "collective_s" not in m and "dp_bytes" not in m
     assert (tmp_path / "model_2.pt").exists()
     a = runner.get_inference_policy()(torch.zeros(8, env.num_obs))
     assert a.shape == (8, env.num_actions)
