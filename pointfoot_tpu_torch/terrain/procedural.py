@@ -8,20 +8,31 @@ uint32 on the CPU, so the hash runs in int64 holding values in [0, 2^32)
 and masks after every multiply; `_mul32` keeps each product inside int64.
 The same code runs on python ints.
 
+The JAX package evaluates the closed form in every query because a TPU
+gather costs more than the hash.  On a CUDA device the opposite holds, and
+an eager query is bound by the host's dispatch of its ~2,400 operations:
+there `ProceduralTerrain` evaluates the closed form once, at construction,
+over the whole grid (`materialize`), and answers each query with one
+indexed read of packed per-cell tables (a `TerrainGrid`), bit for bit what
+the closed form computes on that device.  On the CPU the queries keep the
+closed form.
+
 The env's two queries, `surface_at` and `height_scan_at`, run in the
 spans `terrain.surface` and `terrain.scan` and count their points in
-`terrain.points` (utils/profiling.py).
+`terrain.points`, and those the tables answer in `terrain.table_points`;
+the one-time build runs in the span `terrain.materialize`
+(utils/profiling.py).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from pointfoot_tpu_torch.terrain.grid import TerrainCfg
+from pointfoot_tpu_torch.terrain.grid import TerrainCfg, TerrainGrid
 from pointfoot_tpu_torch.utils import profiling
 
 _M32 = 0xFFFFFFFF
@@ -313,18 +324,60 @@ def cell_height(spec: ProcSpec, gi: torch.Tensor, gj: torch.Tensor):
     return torch.where(inside, h, 0.0)
 
 
+_ROWS = 128  # rows a block of `materialize`, as in the JAX package
+
+
+def materialize(spec: ProcSpec, device="cpu") -> torch.Tensor:
+    """`cell_height` over the whole index grid -> (R, C) float32 heights on
+    `device`.  The function is elementwise, so each entry equals what a
+    query evaluates for that cell on the same device.  Row blocks of
+    `_ROWS` keep the int64 temporaries at a few MB."""
+    R, C = spec.shape
+    gj = torch.arange(C, device=device)[None, :]
+    out = torch.empty((R, C), dtype=torch.float32, device=device)
+    for r0 in range(0, R, _ROWS):
+        gi = torch.arange(r0, min(r0 + _ROWS, R), device=device)[:, None]
+        out[r0:r0 + _ROWS] = cell_height(spec, gi, gj)
+    return out
+
+
+def _table(spec: ProcSpec, env_origins: torch.Tensor,
+           terrain_length: float) -> TerrainGrid:
+    """The materialized closed form as a TerrainGrid on the origins'
+    device.  Its derived columns are the closed-form query's own float32
+    operations on that device (TerrainGrid's float64 `_derived_fields`
+    would differ by an ulp), so every read is what the query computes.  The
+    last row and column are never read: a query's cell is clamped to
+    [0, R - 2] x [0, C - 2]."""
+    with profiling.span("terrain.materialize"):
+        h = materialize(spec, env_origins.device)
+        h00, h10, h01 = h[:-1, :-1], h[1:, :-1], h[:-1, 1:]
+        min3 = torch.zeros_like(h)
+        min3[:-1, :-1] = torch.minimum(torch.minimum(h00, h10), h01)
+        slope = h.new_zeros(h.shape + (2,))
+        slope[:-1, :-1, 0] = (h10 - h00) / spec.hscale
+        slope[:-1, :-1, 1] = (h01 - h00) / spec.hscale
+        return TerrainGrid(h, min3, slope, spec.hscale,
+                           spec.border * spec.hscale, env_origins,
+                           spec.num_rows, spec.num_cols, terrain_length)
+
+
 class ProceduralTerrain:
     """Query interface over the closed form: `height_at` (bilinear),
     `height_scan_at` (min of 3 neighbours), `surface_at` (cell plane: height
     and unit normal), plus the curriculum metadata the env reads.
 
-    Each query evaluates its neighbour cells in one stacked `cell_height`
-    call: the function is elementwise, so the result is the same as one call
-    per neighbour, with a third of the kernel launches.
+    With `table` (by default: when the origins live on a CUDA device) the
+    closed form is materialized once and `self.table`, a TerrainGrid,
+    answers the queries.  A NaN coordinate then reads cell 0 of its axis,
+    a border cell, which is 0 as the closed form reads it.  Without, each
+    query evaluates its neighbour cells in one stacked `cell_height` call:
+    the function is elementwise, so the result is the same as one call per
+    neighbour, with a third of the kernel launches.
     """
 
     def __init__(self, spec: ProcSpec, env_origins: torch.Tensor,
-                 terrain_length: float):
+                 terrain_length: float, table: Optional[bool] = None):
         self.spec = spec
         self.hscale = spec.hscale
         self.border = spec.border * spec.hscale
@@ -332,6 +385,10 @@ class ProceduralTerrain:
         self.num_levels = spec.num_rows
         self.num_types = spec.num_cols
         self.terrain_length = terrain_length
+        if table is None:
+            table = env_origins.is_cuda
+        self.table: Optional[TerrainGrid] = (
+            _table(spec, env_origins, terrain_length) if table else None)
 
     def to(self, device) -> "ProceduralTerrain":
         return ProceduralTerrain(self.spec, self.env_origins.to(device),
@@ -351,6 +408,8 @@ class ProceduralTerrain:
         return cell_height(self.spec, gi, gj).unbind(0)
 
     def height_at(self, x, y):
+        if self.table is not None:
+            return self.table.height_at(x, y)
         x0, y0, px, py = self._cell(x, y)
         fx = px - x0
         fy = py - y0
@@ -360,6 +419,9 @@ class ProceduralTerrain:
                 + h01 * (1 - fx) * fy + h11 * fx * fy)
 
     def height_scan_at(self, x, y):
+        if self.table is not None:
+            profiling.count("terrain.table_points", x.numel())
+            return self.table.height_scan_at(x, y)
         profiling.count("terrain.points", x.numel())
         with profiling.span("terrain.scan"):
             x0, y0, _, _ = self._cell(x, y)
@@ -367,6 +429,9 @@ class ProceduralTerrain:
             return torch.minimum(torch.minimum(h00, h10), h01)
 
     def surface_at(self, x, y):
+        if self.table is not None:
+            profiling.count("terrain.table_points", x.numel())
+            return self.table.surface_at(x, y)
         profiling.count("terrain.points", x.numel())
         with profiling.span("terrain.surface"):
             x0, y0, px, py = self._cell(x, y)
@@ -382,9 +447,11 @@ class ProceduralTerrain:
 
 def build_procedural(cfg: TerrainCfg, seed: int = 0,
                      device="cpu") -> ProceduralTerrain:
-    """ProceduralTerrain from a TerrainCfg.  An env origin sits at the
-    centre of its sub-terrain, at the highest cell of the 1 m square around
-    it; only those squares are evaluated, not the whole table."""
+    """ProceduralTerrain from a TerrainCfg, on `device` (materialized there
+    when it is a CUDA device).  An env origin sits at the centre of its
+    sub-terrain, at the highest cell of the 1 m square around it; only
+    those squares are evaluated, on the CPU, whatever the device: the CPU's
+    and the card's closed forms are not promised to agree to the ulp."""
     hs = cfg.horizontal_scale
     spec = ProcSpec(
         hscale=hs,

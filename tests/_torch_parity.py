@@ -8,6 +8,7 @@ JAX-made state.
 import dataclasses
 
 import numpy as np
+import torch
 
 B = 8
 # Procedural terrain, as the flagship trained, without observation noise, so
@@ -180,3 +181,34 @@ def adam_bound(grads, metrics, name: str) -> np.ndarray:
         (-1,) + (1,) * (g.ndim - 1))).all(axis=0)
     lr_sum = float(sum(m["lr_intra"] for m in metrics))
     return np.where(clear, 1e-6, 2.0 * lr_sum + 1e-6)
+
+
+def procedural_points(spec, envs: int, points: int, seed: int = 0):
+    """(x, y) query points, (envs, points) float32 on the CPU, for a
+    ProcSpec: uniform over the grid, its border and 1 m beyond, then rows
+    on the clip edges (the last cell row and column, the grid's origin),
+    and NaN and infinite coordinates."""
+    g = np.random.default_rng(seed)
+    R, C = spec.shape
+    hs, b = spec.hscale, spec.border * spec.hscale
+    x = g.uniform(-b - 1.0, R * hs - b + 1.0, (envs, points))
+    y = g.uniform(-b - 1.0, C * hs - b + 1.0, (envs, points))
+    x[0] = (R - 2) * hs - b  # the clip edges, exactly and just beyond
+    y[1] = (C - 2) * hs - b
+    x[2] = np.nextafter(np.float32((R - 2) * hs - b), np.float32(np.inf))
+    x[3], y[3] = -b, -b
+    x[4, ::3] = np.nan
+    y[4, 1::3] = np.nan
+    x[5, ::2] = np.inf
+    y[5, 1::2] = -np.inf
+    return (torch.from_numpy(x.astype(np.float32)),
+            torch.from_numpy(y.astype(np.float32)))
+
+
+def assert_bits_equal(got, want) -> None:
+    """The same float32 bits wherever `want` is a number, NaN where it is
+    NaN."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))

@@ -1,7 +1,9 @@
 """Procedural terrain of the PyTorch port vs pointfoot_tpu.terrain.procedural.
 
 The hash must be bit-exact (every committed rough policy trained on this
-realization); heights, scans and surfaces agree to atol 1e-6.
+realization); heights, scans and surfaces agree to atol 1e-6.  The port's
+table route (the closed form materialized, as on a CUDA device) equals its
+closed-form route bit for bit.
 """
 
 import jax.numpy as jnp
@@ -11,6 +13,10 @@ import torch
 
 from pointfoot_tpu.terrain import procedural as jp
 from pointfoot_tpu_torch.terrain import procedural as tp
+from pointfoot_tpu_torch.terrain.grid import TerrainCfg
+from pointfoot_tpu_torch.utils import profiling
+
+from _torch_parity import assert_bits_equal, procedural_points
 
 I_GRID = np.arange(-3, 50, 7)
 J_GRID = np.arange(0, 53, 7) * 3
@@ -110,3 +116,53 @@ def test_parity_terrain_matches_flagship_terrain():
     gj = torch.arange(flag.border, flag.border + B * flag.cell_c)[None, :]
     torch.testing.assert_close(tp.cell_height(parity, gi, gj),
                                tp.cell_height(flag, gi, gj), atol=0, rtol=0)
+
+
+def test_materialize_matches_jax():
+    """The port's materialized grid against JAX's, on a small spec."""
+    spec_kw = dict(SPECS["all_families"], num_rows=2, border=3)
+    want = jp.materialize(jp.ProcSpec(**spec_kw))
+    got = tp.materialize(tp.ProcSpec(**spec_kw))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+
+
+@pytest.fixture(scope="module", params=sorted(SPECS))
+def routes(request):
+    """(table route, closed-form route) of a small spec: 3 difficulty
+    levels, every type column, a 1 m border."""
+    spec = tp.ProcSpec(num_rows=3, border=10, **SPECS[request.param])
+    origins = torch.zeros(spec.num_rows, spec.num_cols, 3)
+    table = tp.ProceduralTerrain(spec, origins, 8.0, table=True)
+    closed = tp.ProceduralTerrain(spec, origins, 8.0)
+    assert table.table is not None and closed.table is None
+    return table, closed
+
+
+@pytest.mark.parametrize("query", ["height_at", "height_scan_at",
+                                   "surface_at"])
+def test_table_route_is_the_closed_form_bit_for_bit(routes, query):
+    """Points over the whole grid and border, on the clip edges, beyond
+    the grid, NaN and infinite: the same float32 bits."""
+    table, closed = routes
+    x, y = procedural_points(table.spec, 64, 121)
+    got = getattr(table, query)(x, y)
+    want = getattr(closed, query)(x, y)
+    if query == "surface_at":
+        assert_bits_equal(got[0], want[0])
+        assert_bits_equal(got[1], want[1])
+    else:
+        assert_bits_equal(got, want)
+
+
+def test_cpu_terrain_keeps_the_closed_form():
+    cfg = TerrainCfg(num_rows=2, num_cols=3, border_size=1.0)
+    terrain = tp.build_procedural(cfg, seed=0, device="cpu")
+    assert terrain.table is None
+    x, y = procedural_points(terrain.spec, 8, 9)
+    before = profiling.counters()
+    terrain.surface_at(x, y)
+    terrain.height_scan_at(x, y)
+    after = profiling.counters()
+    assert after["terrain.points"] - before.get("terrain.points", 0) == 144
+    assert (after.get("terrain.table_points", 0)
+            == before.get("terrain.table_points", 0))

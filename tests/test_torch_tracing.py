@@ -12,6 +12,7 @@ import torch
 from _torch_dp_worker import run_ranks
 from pointfoot_tpu_torch import bench
 from pointfoot_tpu_torch.envs.legged_env import STEP_PHASES
+from pointfoot_tpu_torch.terrain.procedural import ProceduralTerrain
 from pointfoot_tpu_torch.utils import profiling
 from pointfoot_tpu_torch.utils.registry import (get_cfgs, make_alg_runner,
                                                 make_env)
@@ -180,6 +181,13 @@ def test_no_record_function_opens_without_a_profiler(monkeypatch):
 
 # -------------------------------------------------- the port's spans
 
+def _step_points(env):
+    """A step's terrain points: the physics' surface under every sphere at
+    every substep, the height scan, the feet's heights."""
+    return (env.cfg.control.decimation * len(env.model.collision_body) * B
+            + B * env.num_height_points + B * len(env.feet_idx))
+
+
 def _tiny_runner(recurrent: bool):
     env = make_env("pointfoot_rough", num_envs=B, device="cpu")
     assert env.cfg.terrain.mesh_type != "plane"  # the table terrain
@@ -203,11 +211,7 @@ def _tiny_runner(recurrent: bool):
 def test_train_iteration_closes_one_row_of_every_span(recurrent):
     env, runner = _tiny_runner(recurrent)
     es = runner.init(0)
-    nc = len(env.model.collision_body)
-    # a step's terrain points: the physics' surface under every sphere at
-    # every substep, the height scan, the feet's heights
-    per_step = (env.cfg.control.decimation * nc * B
-                + B * env.num_height_points + B * len(env.feet_idx))
+    per_step = _step_points(env)
     points = profiling.counter("terrain.points")
     es, out = env.step(es, torch.zeros(B, env.num_actions))
     assert profiling.counter("terrain.points") - points == per_step
@@ -253,6 +257,41 @@ def test_train_iteration_closes_one_row_of_every_span(recurrent):
                   "env.step": {"runner.rollout"},
                   "terrain.surface": {"env.physics"},
                   "terrain.scan": {"env.heights", "env.step"}})
+
+
+def test_table_backed_procedural_step_counts_table_points():
+    """A procedural terrain with the table (as on a CUDA device) records
+    one `terrain.materialize` a construction, and every query point of a
+    step counts in `terrain.table_points` as in `terrain.points`."""
+    terrain = dict(procedural=True, num_rows=2, num_cols=3, border_size=1.0)
+    env = make_env("pointfoot_rough", num_envs=B, device="cpu",
+                   cfg_patch=dict(terrain=terrain))
+    closed = env.terrain
+    assert closed.table is None  # the CPU keeps the closed form
+
+    def materialized():
+        return sum(r.name == "terrain.materialize"
+                   for r in profiling.records())
+
+    n = materialized()
+    with profiling.recording():
+        ProceduralTerrain(closed.spec, closed.env_origins,
+                          closed.terrain_length)
+        assert materialized() == n
+        for k in (1, 2):
+            env.terrain = ProceduralTerrain(
+                closed.spec, closed.env_origins, closed.terrain_length,
+                table=True)
+            assert materialized() == n + k
+    env.height_fn = env._height_fn()
+    es = env.init_state(0)
+    before = profiling.counters()
+    env.step(es, torch.zeros(B, env.num_actions))
+    after = profiling.counters()
+    points, table_points = (
+        after.get(k, 0) - before.get(k, 0)
+        for k in ("terrain.points", "terrain.table_points"))
+    assert points == table_points == _step_points(env)
 
 
 def test_dp_collectives_are_counted_as_by_hand(tmp_path):
