@@ -7,9 +7,11 @@ planted in the port, on a few seeds (the upper readings).
     python3 -m benchmark.calibrate --workload <cell> --seeds 11,12,... \
         --control_seeds 3 --faults half_batch,answer_altered --out <json>
 
-The port runs the cell's set-up and recorded iterations only (no window);
-every run is at the cell's own size.  Writes one JSON object and prints
-one line a reading.
+The port runs the cell's set-up and recorded iterations only (no window),
+through the cell's driver (`port_records`; a multi-rank cell's driver
+starts its ranks on cards 1..W-1 once for every seed and fault); every run
+is at the cell's own size.  Writes one JSON object and prints one line a
+reading.
 """
 
 from __future__ import annotations
@@ -35,54 +37,62 @@ def main(argv=None) -> int:
     from benchmark import run as bench_run
     bench_run.cache_dirs()
     import torch
-    from benchmark import compare, faults, record, spec
-    from benchmark.drivers import ppo_train
+    from benchmark import spec
 
     cell = spec.load_cell(args.workload)
-    bench_run.check_devices(1)
+    driver = spec.load_module("drivers", cell.traffic["driver"])
+    fault_names = [f for f in args.faults.split(",") if f]
+    bench_run.check_devices(cell.chips)
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     seeds = [int(s) for s in args.seeds.split(",")]
-    fault_names = [f for f in args.faults.split(",") if f]
     out = {"workload": cell.name, "card": bench_run.card(),
            "device": torch.cuda.get_device_name(device), "sound": {},
            "control": {}, "faults": {f: {} for f in fault_names},
            "seconds": {}}
 
-    def port(seed):
-        t = time.perf_counter()
-        env, runner = ppo_train.build_port(cell, device)
-        _, rec = record.start(runner, env, seed, cell.traffic)
-        torch.cuda.synchronize()
-        out["seconds"].setdefault("port", []).append(time.perf_counter() - t)
-        del env, runner
-        return rec
-
     def show(kind, seed, nums):
         print(kind, seed, json.dumps(nums), flush=True)
 
+    tasks = []
     for i, seed in enumerate(seeds):
-        prog = port(seed)
+        tasks.append((seed, []))
+        if i < args.control_seeds:
+            tasks += [(seed, [f]) for f in fault_names]
+    refs = {}  # the control's seeds' and the latest seed's
+    keep = set(seeds[:args.control_seeds])
+
+    def reference(seed):
+        if seed not in refs:
+            for s in set(refs) - keep:
+                del refs[s]
+            t = time.perf_counter()
+            refs[seed] = driver.reference_record(cell, seed, device)
+            out["seconds"].setdefault("reference", []).append(
+                time.perf_counter() - t)
+        return refs[seed]
+
+    t = time.perf_counter()
+    for (seed, names), prog in zip(tasks, driver.port_records(cell, tasks,
+                                                               device)):
+        out["seconds"].setdefault("port", []).append(time.perf_counter() - t)
+        nums = driver.numbers(prog, reference(seed))
+        if names:
+            out["faults"][names[0]][seed] = nums
+        else:
+            out["sound"][seed] = nums
+        show(names[0] if names else "sound", seed, nums)
         t = time.perf_counter()
-        ref = ppo_train.reference_record(cell, seed, device)
-        out["seconds"].setdefault("reference", []).append(
-            time.perf_counter() - t)
-        out["sound"][seed] = compare.numbers(prog, ref)
-        show("sound", seed, out["sound"][seed])
-        if i >= args.control_seeds:
-            continue
-        ctl = ppo_train.reference_record(cell, seed, device, tf32=True)
-        out["control"][seed] = compare.numbers(ctl, ref)
+    for seed in seeds[:args.control_seeds]:
+        ref = reference(seed)
+        ctl = driver.reference_record(cell, seed, device, tf32=True)
+        out["control"][seed] = driver.numbers(ctl, ref)
         show("control", seed, out["control"][seed])
-        for f in fault_names:
-            with faults.FAULTS[f]():
-                bad = port(seed)
-            out["faults"][f][seed] = compare.numbers(bad, ref)
-            show(f, seed, out["faults"][f][seed])
-    lower = {k: max(v[k] for v in out["sound"].values())
-             for k in compare.NUMBERS}
-    out["lower"] = lower
-    print("lower", json.dumps(lower), flush=True)
+    if out["sound"]:
+        lower = {k: max(v[k] for v in out["sound"].values())
+                 for k in driver.NUMBERS}
+        out["lower"] = lower
+        print("lower", json.dumps(lower), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -13,6 +13,14 @@ the reference's, from the same seed.
   privileged observations, actions, rewards, dones, values, log-probs), the
   worst field's sum |port - ref| / sum |ref|.
 
+A driver may compare the first iteration on its own too (`FIRST`), where
+rounding that the second iteration amplifies leaves `loss` and
+`param_change` loose limits:
+
+- `loss_first`: the first iteration's loss, as `loss`;
+- `param_change_first`: the parameters' change over the first iteration,
+  as `param_change`.
+
 Leaves whose first gradient in the reference is under a thousandth of the
 median leaf's are left out of `grad_first` and `param_change`: Adam moves
 them by round-off alone.  A leaf the port leaves unmoved where the
@@ -26,6 +34,7 @@ from typing import Dict, Iterable, Optional
 import torch
 
 NUMBERS = ("loss", "grad_first", "param_change", "rollout")
+FIRST = ("loss_first", "param_change_first")
 NEGLIGIBLE_GRAD = 1e-3  # of the median leaf's first-gradient norm
 
 
@@ -57,15 +66,24 @@ def worst_leaf_gap(prog: Dict[str, torch.Tensor],
     return max(abs(pn[k] - rn[k]) / max(rn[k], med, 1e-30) for k in keys)
 
 
-def change(rec) -> Dict[str, torch.Tensor]:
-    return {k: rec.params[k] - rec.params0[k] for k in rec.params}
+def change(rec, after: str = "params") -> Dict[str, torch.Tensor]:
+    params = getattr(rec, after)
+    return {k: params[k] - rec.params0[k] for k in params}
+
+
+def _loss_gap(p: float, r: float) -> float:
+    return abs(p - r) / max(abs(r), 1e-30)
+
+
+def _finite(nums: Dict[str, float]) -> Dict[str, float]:
+    return {k: (v if v == v else float("inf")) for k, v in nums.items()}
 
 
 def numbers(prog, ref) -> Dict[str, float]:
     """The four numbers of `prog` (the port's record) against `ref`."""
     keys = moving_leaves(ref.grad_first)
     out = {}
-    out["loss"] = (max(abs(p - r) / max(abs(r), 1e-30)
+    out["loss"] = (max(_loss_gap(p, r)
                        for p, r in zip(prog.losses, ref.losses))
                    if prog.losses and len(prog.losses) == len(ref.losses)
                    else float("inf"))
@@ -81,12 +99,24 @@ def numbers(prog, ref) -> Dict[str, float]:
         gaps.append(float((p.double() - r.double()).abs().sum())
                     / max(den, 1e-30))
     out["rollout"] = max(gaps)
-    return {k: (v if v == v else float("inf")) for k, v in out.items()}
+    return _finite(out)
+
+
+def first_numbers(prog, ref) -> Dict[str, float]:
+    """The first iteration's numbers (`FIRST`) of `prog` against `ref`."""
+    keys = moving_leaves(ref.grad_first)
+    return _finite({
+        "loss_first": (_loss_gap(prog.losses[0], ref.losses[0])
+                       if prog.losses and ref.losses else float("inf")),
+        "param_change_first": worst_leaf_gap(
+            change(prog, "params_first"), change(ref, "params_first"),
+            keys)})
 
 
 def verdict(nums: Dict[str, float], limits: Optional[Dict[str, float]]
             ) -> bool:
-    """Every number within its limit (a NaN or a missing limit fails)."""
-    if not limits:
+    """Every number within its limit: a NaN, a number without a limit or
+    a limit without its number fails."""
+    if not limits or set(nums) != set(limits):
         return False
-    return all(k in limits and nums[k] <= limits[k] for k in NUMBERS)
+    return all(nums[k] <= limits[k] for k in nums)

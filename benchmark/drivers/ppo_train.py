@@ -17,16 +17,21 @@ then a few whole iterations under the profiler.
 Once the window has closed and the peak memory has been read, the port's
 state is freed and the reference (benchmark/reference/) runs the same
 recorded iterations from the same seed; benchmark/compare.py decides.
+
+Beside `run`, what the tests and benchmark/calibrate.py take from a driver:
+`check_config`, `port_records`, `reference_record`, `numbers`, `NUMBERS`
+and `cpu_route` (benchmark/README.md, "What a cell is made of").
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import time
 
 import torch
 
-from benchmark import compare, record, spec
+from benchmark import compare, faults, record, spec
 
 
 def build_port(cell: spec.Cell, device, mesh=None):
@@ -64,21 +69,80 @@ def build_reference(cell: spec.Cell, device):
     return env, Runner(env, train_cfg)
 
 
+def check_config(cell: spec.Cell) -> None:
+    """Raise where the reference's or the port's configuration classes do
+    not take the cell's configuration as its file has it (the port's as
+    `make_env` builds it; no env is built)."""
+    from benchmark.reference.config import LeggedEnvCfg, TrainCfg
+    from pointfoot_tpu_torch.envs.config import override
+    from pointfoot_tpu_torch.utils.registry import get_cfgs
+    values = spec.env_values(cell)
+    train = cell.config["train"]
+    env_reg, train_reg = get_cfgs(cell.config["task"])
+    spec.check_same(spec.overlay(LeggedEnvCfg(), values), values,
+                    "the reference's env configuration")
+    spec.check_same(spec.overlay(TrainCfg(), train), train,
+                    "the reference's training configuration")
+    spec.check_same(override(env_reg, **{k: spec.tuples(v)
+                                         for k, v in values.items()}),
+                    values, "the port's env configuration")
+    spec.check_same(spec.overlay(train_reg, train), train,
+                    "the port's training configuration")
+
+
+@contextlib.contextmanager
+def tf32_products(on: bool):
+    """Matrix products in TF32 while open (`on`), or in full float32."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev[0]
+        torch.backends.cudnn.allow_tf32 = prev[1]
+
+
 def reference_record(cell: spec.Cell, seed: int, device, tf32: bool = False
                      ) -> record.Record:
     """The reference's recorded iterations from `seed`; with `tf32` its
     matrix products in TF32 (the control)."""
-    prev = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-    torch.backends.cudnn.allow_tf32 = tf32
-    try:
+    with tf32_products(tf32):
         env, runner = build_reference(cell, device)
         _, rec = record.start(runner, env, seed, cell.traffic)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev[0]
-        torch.backends.cudnn.allow_tf32 = prev[1]
     return rec
+
+
+def port_records(cell: spec.Cell, tasks, device):
+    """The port's recorded iterations for each task (seed, the names of the
+    faults open): the set-up of `run` without a window, a fresh env and
+    runner a task (benchmark/calibrate.py)."""
+    for seed, names in tasks:
+        with faults.opened(names):
+            env, runner = build_port(cell, device)
+            _, rec = record.start(runner, env, seed, cell.traffic)
+            sync(device)
+        del env, runner
+        yield rec
+
+
+numbers = compare.numbers  # the port's record against the reference's
+NUMBERS = compare.NUMBERS  # what `numbers` gives: the keys of the limits
+
+
+@contextlib.contextmanager
+def cpu_route():
+    """A tiny run on the CPU takes the cells' route: the fused rollout
+    (through the plain versions of kernels 1-2), which the port takes from
+    `MEGA_MIN_BATCH` envs on."""
+    import pointfoot_tpu_torch.physics.dynamics as dynamics
+    old = dynamics.MEGA_MIN_BATCH
+    dynamics.MEGA_MIN_BATCH = 1
+    try:
+        yield
+    finally:
+        dynamics.MEGA_MIN_BATCH = old
 
 
 def sync(device) -> None:

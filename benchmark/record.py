@@ -8,11 +8,11 @@ then the warm training iterations through the call the window loops
 (`train_iteration`, or `train_iteration_recurrent` with its carry).  Those
 iterations are the set-up's warm iterations and the ones compared.
 
-Recorded: the parameters before and after, each iteration's loss (the
-surrogate plus the weighted value loss minus the weighted entropy, means
-over the minibatches), the first gradient as the optimizer got it (Adam's
-first moment after its first step, divided by 1 - beta1), and the first
-iteration's rollout storage.
+Recorded: the parameters before, after the first iteration and after the
+last, each iteration's loss (the surrogate plus the weighted value loss
+minus the weighted entropy, means over the minibatches), the first
+gradient as the optimizer got it (Adam's first moment after its first
+step, divided by 1 - beta1), and the first iteration's rollout storage.
 """
 
 from __future__ import annotations
@@ -40,6 +40,8 @@ class Loop:
 class Record:
     params0: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
     params: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    params_first: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
     grad_first: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict)
     losses: List[float] = dataclasses.field(default_factory=list)
@@ -102,6 +104,7 @@ def start(runner, env, seed: int, traffic: dict) -> Tuple[Loop, Record]:
             metrics = iterate(runner, loop)
             rec.losses.append(total_loss(metrics, runner.cfg.algorithm))
             if k == 0:
+                rec.params_first = _params(runner.network)
                 st = runner.storage
                 rec.rollout = {f: getattr(st, f).detach().to(
                     "cpu", torch.float32, copy=True) for f in ROLLOUT_FIELDS}

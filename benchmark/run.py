@@ -106,9 +106,8 @@ def result_line(cell, args, out: dict) -> dict:
     res["iteration_ends_s"] = out.get("ends", [])
     res["iterations"] = out["iterations"]
     res["window_s"] = out["window_s"]
-    res["compared"] = {k: {"value": nums[k],
-                           "limit": (cell.limits or {}).get(k)}
-                       for k in compare.NUMBERS}
+    res["compared"] = {k: {"value": v, "limit": (cell.limits or {}).get(k)}
+                       for k, v in nums.items()}
     return res
 
 

@@ -65,19 +65,18 @@ def test_benchmark_json_keys_and_names():
 def test_cell_files_found_by_name(cell):
     c = spec.load_cell(cell)
     assert c.config["name"] in {x["name"] for x in BENCH["configs"]}
-    spec.load_module("drivers", c.traffic["driver"])
+    drv = spec.load_module("drivers", c.traffic["driver"])
+    for f in ("run", "reference_record", "port_records", "numbers",
+              "check_config", "cpu_route"):
+        assert callable(getattr(drv, f)), f
     for m in c.per_layer:
         assert callable(spec.load_module("metrics", m["name"]).read)
     assert c.limits is not None
-    assert set(c.limits) == set(compare.NUMBERS)
+    # a limit for each number the driver compares, the common four in all
+    assert set(compare.NUMBERS) <= set(drv.NUMBERS)
+    assert set(c.limits) == set(drv.NUMBERS)
     # the port and the reference take the configuration as the file has it
-    from benchmark.drivers import ppo_train
-    from benchmark.reference.config import LeggedEnvCfg, TrainCfg
-    spec.check_same(spec.overlay(LeggedEnvCfg(), spec.env_values(c)),
-                    spec.env_values(c), "reference")
-    spec.check_same(spec.overlay(TrainCfg(), c.config["train"]),
-                    c.config["train"], "reference")
-    assert ppo_train.build_port  # the port is built on the card only
+    drv.check_config(c)
 
 
 def test_network_flops_hand_counts():
@@ -112,8 +111,42 @@ def test_substep_bytes_hand_count():
     assert counts.substep_bytes(6, 9, 4096, surface=False) == 4 * 164 * 4096
 
 
+@pytest.mark.parametrize("metric", ["collective_ms", "collective_wait_ms"])
+def test_collective_ms_hand_count(metric):
+    read = spec.load_module("metrics", metric).read
+    # three ranks, three collectives in 2 iterations; the least of each
+    # collective's kernel times is 1, 0.5 and 1 ms (the rank that launched
+    # it last), 2.5 ms in all; the ranks' sums are 8, 4 and 4 ms
+    profs = [{"iterations": 2, "collective_s": [0.004, 0.001, 0.003]},
+             {"iterations": 2, "collective_s": [0.001, 0.002, 0.001]},
+             {"iterations": 2, "collective_s": [0.002, 0.0005, 0.0015]}]
+    want = {"collective_ms": 2.5 / 2,
+            "collective_wait_ms": (5.5 + 1.5 + 1.5) / 3 / 2}[metric]
+    assert read({"profiles": profs}) == pytest.approx(want)
+    # no collective, one rank, or counts that differ: nothing to read
+    assert read({"profiles": [dict(p, collective_s=[]) for p in profs]}) \
+        is None
+    assert read({"profiles": profs[:1]}) is None
+    assert read({"profiles": [profs[0], dict(profs[1], collective_s=[
+        0.001])]}) is None
+    assert read({}) is None
+
+
+def test_device_idle_leaves_collectives_out():
+    read = spec.load_module("metrics", "device_idle").read
+    # one card: no collective, work_s = busy_s; a rank whose NCCL kernels
+    # spun 0.3 of its 1 s window idles 0.7 of it
+    one = {"busy_s": 0.2, "work_s": 0.2, "window_s": 1.0}
+    rank = {"busy_s": 0.6, "work_s": 0.3, "window_s": 1.0}
+    assert read({"profiles": [one]}) == pytest.approx(0.8)
+    assert read({"profiles": [one, rank]}) == pytest.approx(0.75)
+    assert read({"profiles": [dict(one, work_s=0.0)]}) is None
+    assert read({}) is None
+
+
 def _fake_out(trace: bool):
-    obs = {"profiles": [{"busy_s": 0.2, "window_s": 1.0, "iterations": 1,
+    obs = {"profiles": [{"busy_s": 0.2, "work_s": 0.2, "window_s": 1.0,
+                         "iterations": 1,
                          "kernels": {"rollout_substep_kernel": [96, 0.003]},
                          "device_ops": [["k", 0.1]],
                          "idle_gaps": [["bm.update: aten::item", 0.01]]}],
@@ -135,7 +168,7 @@ def test_result_line_has_the_contract_keys(monkeypatch, trace):
     monkeypatch.setattr(torch.cuda, "get_device_name",
                         lambda *a: "NVIDIA H100 80GB HBM3")
     monkeypatch.setattr(run, "card", lambda *a: {})
-    cell = spec.load_cell("pf_mlp_train_table")
+    cell = spec.load_cell("pf_mlp_train_procedural")
     args = types.SimpleNamespace(trace=trace)
     res = run.result_line(cell, args, _fake_out(bool(trace)))
     keys = list(res)
@@ -159,7 +192,7 @@ def _run_bench(cwd, *extra):
     env.pop("PYTHONPATH", None)
     return subprocess.run(
         [sys.executable, "-m", "benchmark.run", "--workload",
-         "pf_mlp_train_table", "--seed", "3", "--seconds", "1",
+         "pf_mlp_train_procedural", "--seed", "3", "--seconds", "1",
          "--trace", "0", *extra], cwd=cwd, env=env, capture_output=True,
         text=True, timeout=300)
 
@@ -170,6 +203,21 @@ def test_no_card_fails_without_result():
     p = _run_bench(ROOT)
     assert p.returncode != 0 and p.stdout.strip() == ""
     assert "no CUDA device" in p.stderr
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_fewer_cards_than_the_cell_asks_fails_without_result(
+        monkeypatch, capsys, cell):
+    chips = spec.load_cell(cell).chips
+    for var in ("TRITON_CACHE_DIR", "TORCH_EXTENSIONS_DIR",
+                "CUDA_CACHE_PATH"):  # run.main sets them
+        monkeypatch.setenv(var, "")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: chips - 1)
+    rc = run.main(["--workload", cell, "--seed", "3", "--seconds", "1"])
+    out = capsys.readouterr()
+    assert rc == 2 and out.out.strip() == ""
+    assert f"asks for {chips} CUDA devices" in out.err
 
 
 def test_bare_directory_fails_without_result(tmp_path):
@@ -192,19 +240,24 @@ def _fresh_modules(code: str) -> set:
 def test_nothing_the_benchmark_runs_loads_jax():
     mods = _fresh_modules(
         "from benchmark import run, spec, calibrate, faults\n"
-        "from benchmark.drivers import ppo_train\n"
         "import pointfoot_tpu_torch.utils.registry, "
-        "pointfoot_tpu_torch.rl.runner\n"
-        "for m in spec.load_json('BENCHMARK.json')['per_layer']:\n"
+        "pointfoot_tpu_torch.rl.runner, "
+        "pointfoot_tpu_torch.parallel.mesh\n"
+        "bench = spec.load_json('BENCHMARK.json')\n"
+        "for w in bench['workloads']:\n"
+        "    c = spec.load_cell(w['name'])\n"
+        "    spec.load_module('drivers', c.traffic['driver'])\n"
+        "for m in bench['per_layer']:\n"
         "    spec.load_module('metrics', m['name'])\n"
-        "import benchmark.reference.runner\n")
+        "import benchmark.reference.runner, benchmark.reference.dp\n")
     assert not mods & set(run.FORBIDDEN)
     assert "pointfoot_tpu_torch" in mods
 
 
 def test_reference_imports_nothing_of_the_port():
     mods = _fresh_modules(
-        "import benchmark.reference.runner, benchmark.reference.legged_env")
+        "import benchmark.reference.runner, benchmark.reference.legged_env, "
+        "benchmark.reference.dp")
     assert not mods & {"pointfoot_tpu_torch", "pointfoot_tpu", "jax",
                        "jaxlib", "flax"}
 

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import time
 from collections import defaultdict
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -168,6 +168,23 @@ def _gaps(intervals):
     return out
 
 
+def is_collective(name: str) -> bool:
+    """A kernel of NCCL's collectives."""
+    return "nccl" in name.lower()
+
+
+def collectives_matched(profiles) -> Optional[List[List[float]]]:
+    """Each rank's collective kernels' seconds, matched across the ranks
+    by their order (every rank launches the same collectives in the same
+    order on one communicator): a list a rank, or None where no collective
+    ran or the ranks' counts differ."""
+    per_rank = [p.get("collective_s") or [] for p in profiles]
+    if len(per_rank) < 2 or not per_rank[0] or any(
+            len(c) != len(per_rank[0]) for c in per_rank):
+        return None
+    return per_rank
+
+
 def _on_device(ev) -> bool:
     """A kernel, copy or fill that ran on the device (not a CPU event, and
     not an annotation the profiler mirrors onto the device's timeline)."""
@@ -194,19 +211,26 @@ def profile(step: Callable[[], None], iterations: int) -> dict:
     """Run `step` (one whole iteration) `iterations` times under the
     profiler with device activity only, which costs the host little:
     window_s (host clock, drained card at both ends), busy_s (union of
-    device activity), kernels {name: [count, seconds]}, device_ops (top 10
+    device activity), work_s (the same without the collectives' kernels,
+    which run from their launch until every rank has joined),
+    collective_s (each collective's kernel's seconds, in the order they
+    started), kernels {name: [count, seconds]}, device_ops (top 10
     by seconds).  Then one more iteration with the host's operations
     traced too, which slows the host, for idle_gaps: the 10 longest gaps
     between device activity, labelled by the host's annotation and
     innermost operation at their middle."""
     window_s, events = _events(
         step, iterations, [torch.profiler.ProfilerActivity.CUDA])
-    dev = []
+    dev, work, coll = [], [], []
     kernels: Dict[str, List[float]] = {}
     for ev in events:
         if _on_device(ev):
             s, e = ev.start_ns(), ev.start_ns() + ev.duration_ns()
             dev.append((s, e))
+            if is_collective(ev.name()):
+                coll.append((s, e))
+            else:
+                work.append((s, e))
             k = kernels.setdefault(ev.name(), [0, 0.0])
             k[0] += 1
             k[1] += (e - s) * 1e-9
@@ -232,6 +256,9 @@ def profile(step: Callable[[], None], iterations: int) -> dict:
         label = (min(ann, key=lambda h: h[1] - h[0])[2] + ": "
                  if ann else "") + inner
         idle.append([label, (ge - gs) * 1e-9])
-    return {"window_s": window_s, "busy_s": busy_s, "kernels": kernels,
+    return {"window_s": window_s, "busy_s": busy_s,
+            "work_s": _union(work) * 1e-9,
+            "collective_s": [(e - s) * 1e-9 for s, e in sorted(coll)],
+            "kernels": kernels,
             "device_ops": [[n, v[1]] for n, v in top],
             "idle_gaps": idle, "iterations": iterations}
