@@ -487,7 +487,9 @@ class LeggedEnv:
         process at MEGA_MIN_BATCH envs or more; a rank of a data-parallel
         run (world size > 1) on its shard when the global batch divides
         and the shard holds MEGA_MIN_BATCH envs or more.  Otherwise each
-        process takes the scan path on its own rows."""
+        process takes the scan path on its own rows, where each tick of the
+        actuator network runs in the span `actuator.torque` and adds the
+        joint rows it takes (envs x nj) to the counter `actuator.rows`."""
         c = self.cfg.control
         sim_dt = self.cfg.sim.dt
         mesh = self._shard_mesh
@@ -516,9 +518,12 @@ class LeggedEnv:
             if self.use_actuator_net:
                 pos_err = (actions * c.action_scale + self.default_qpos
                            - phys.qpos)
-                tau, act_carry = act.actuator_net_torque(
-                    self.actuator_weights, act_carry, pos_err, phys.qvel)
-                tau = torch.clamp(tau, -self.torque_limit, self.torque_limit)
+                profiling.count("actuator.rows", pos_err.numel())
+                with profiling.span("actuator.torque"):
+                    tau, act_carry = act.actuator_net_torque(
+                        self.actuator_weights, act_carry, pos_err, phys.qvel)
+                    tau = torch.clamp(tau, -self.torque_limit,
+                                      self.torque_limit)
             else:
                 tau = self._compute_torques(actions, phys.qpos, phys.qvel,
                                             last_qvel, state.params)

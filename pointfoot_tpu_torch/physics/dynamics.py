@@ -12,12 +12,15 @@ current velocity (tests and smooth models).  `step_batched` is the substep
 the env's scan path calls.  It picks one of
 three routes, as the JAX function does:
 
-- mega-kernel, CUDA and B >= MEGA_MIN_BATCH: the sphere-xy FK kernel, the
-  terrain surface query, the substep kernel (ops/cuda/substep.py);
+- mega-kernel, B >= MEGA_MIN_BATCH: the sphere-xy FK kernel, the terrain
+  surface query, the substep kernel (ops/cuda/substep.py), whose wrappers
+  run their plain versions for CPU tensors;
 - batched Cholesky, CUDA and CHOL_MIN_BATCH <= B < MEGA_MIN_BATCH: batched
   assembly, the Cholesky kernel (ops/cuda/cholesky.py), `finish_step`;
-- plain, otherwise and always on the CPU: batched assembly,
-  `linalg.chol_solve`, `finish_step`.
+- plain, otherwise: batched assembly, `linalg.chol_solve`, `finish_step`.
+
+The mega-kernel route runs in the span `physics.step_batched`
+(utils/profiling.py): the FK, the surface query and the substep.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from pointfoot_tpu_torch.ops.cuda import substep as substep_cuda
 from pointfoot_tpu_torch.physics import contact as contact_mod
 from pointfoot_tpu_torch.physics.model import (PhysicsParams, PhysicsState,
                                                RobotModel)
+from pointfoot_tpu_torch.utils import profiling
 
 # step_batched's routes, at the JAX thresholds: the substep mega-kernel
 # from one 8 x 512 grid block of envs (pointfoot_tpu/physics/dynamics.py:502
@@ -363,17 +367,18 @@ def step_batched(model: RobotModel, params: PhysicsParams,
            else torch.zeros_like(state.base_pos))
     B = state.base_pos.shape[0]
     on_cuda = state.base_pos.device.type == "cuda"
-    if on_cuda and B >= MEGA_MIN_BATCH:
+    if B >= MEGA_MIN_BATCH:
         # terrain enters as surface rows gathered at the sphere positions of
         # the same pre-step state, which is what contact_terms would query
-        surface = None
-        if not getattr(height_fn, "is_flat", False):
-            xy = substep_cuda.fk_contact_xy(model, state)
-            surface = contact_mod.query_surface(height_fn, xy[..., 0],
-                                                xy[..., 1])
-        return substep_cuda.substep(model, params, state, joint_torque, dt,
-                                    gravity=gravity, external_force=ext,
-                                    surface=surface)
+        with profiling.span("physics.step_batched"):
+            surface = None
+            if not getattr(height_fn, "is_flat", False):
+                xy = substep_cuda.fk_contact_xy(model, state)
+                surface = contact_mod.query_surface(height_fn, xy[..., 0],
+                                                    xy[..., 1])
+            return substep_cuda.substep(model, params, state, joint_torque,
+                                        dt, gravity=gravity,
+                                        external_force=ext, surface=surface)
     A, rhs, terms = assemble_velocity_solve(
         model, params, state, joint_torque, height_fn, dt, ext, None,
         gravity)

@@ -12,6 +12,7 @@ import torch
 from _torch_dp_worker import run_ranks
 from pointfoot_tpu_torch import bench
 from pointfoot_tpu_torch.envs.legged_env import STEP_PHASES
+from pointfoot_tpu_torch.physics import dynamics
 from pointfoot_tpu_torch.terrain.procedural import ProceduralTerrain
 from pointfoot_tpu_torch.utils import profiling
 from pointfoot_tpu_torch.utils.registry import (get_cfgs, make_alg_runner,
@@ -257,6 +258,47 @@ def test_train_iteration_closes_one_row_of_every_span(recurrent):
                   "env.step": {"runner.rollout"},
                   "terrain.surface": {"env.physics"},
                   "terrain.scan": {"env.heights", "env.step"}})
+
+
+@pytest.mark.parametrize("task,route", [
+    ("anymal_c_rough", "mega"), ("anymal_c_rough", "plain"),
+    ("pointfoot_rough", "fused")])
+def test_actuator_and_batched_substep_spans(monkeypatch, task, route):
+    """One env step inside `profiling.recording()`.  ANYmal's actuator
+    network runs on the scan path: each of its 4 ticks records
+    `actuator.torque` and counts envs x 12 joint rows in `actuator.rows`;
+    on `step_batched`'s mega-kernel route (through the plain versions of
+    kernels 4 and 3, as its benchmark cell takes the kernels) each substep
+    records `physics.step_batched` too, around the surface query, and on
+    the plain route (below MEGA_MIN_BATCH envs) none does.  PointFoot's
+    fused rollout, the route of its cells, records neither and counts no
+    actuator row."""
+    if route != "plain":
+        monkeypatch.setattr(dynamics, "MEGA_MIN_BATCH", 1)
+    env = make_env(task, num_envs=B, device="cpu")
+    es = env.init_state(0)
+    with profiling.recording():
+        with profiling.row() as row:
+            env.step(es, torch.zeros(B, env.num_actions))
+    counts = {k: v["count"] for k, v in row["spans"].items()}
+    n_sub = env.cfg.control.decimation
+    if task == "pointfoot_rough":
+        assert "actuator.torque" not in counts
+        assert "physics.step_batched" not in counts
+        assert "actuator.rows" not in row["counters"]
+        return
+    assert counts["actuator.torque"] == n_sub == 4
+    assert row["counters"]["actuator.rows"] == n_sub * B * 12
+    assert counts.get("physics.step_batched", 0) == (
+        n_sub if route == "mega" else 0)
+    recs = _row_records(row)
+    by_id = {r.id: r for r in recs}
+    parent = {r.name: by_id[r.parent].name for r in recs
+              if r.name in ("actuator.torque", "physics.step_batched",
+                            "terrain.surface")}
+    assert parent["actuator.torque"] == "env.physics"
+    assert parent["terrain.surface"] == (
+        "physics.step_batched" if route == "mega" else "env.physics")
 
 
 def test_table_backed_procedural_step_counts_table_points():
