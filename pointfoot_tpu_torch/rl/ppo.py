@@ -30,18 +30,29 @@ normalization, the losses and the KL that drives the adaptive rate are
 reduced across ranks, and the gradients are summed across ranks before
 they are zeroed where not finite and clipped, so every rank takes the same
 step and branch and ends with the same parameters, Adam moments and rate.
+
+On one card, `RecurrentPPO` replays each minibatch's forward, loss and
+backward as a CUDA graph (`graph_route`, `_MinibatchGraph`): BPTT over the
+window is thousands of small launches, which eager dispatch makes the
+host's time.  The graph launches the same kernels in the same order, so
+the numbers are the eager route's bit for bit.  The optimizer step and the
+KL read for the adaptive rate stay eager.  Counters: `ppo.graph_capture`
+(graphs captured, inside the span of that name) and `ppo.graph_replay`
+(minibatches the graph served).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
 from pointfoot_tpu_torch.envs.config import AlgorithmCfg
-from pointfoot_tpu_torch.parallel.mesh import (Mesh, all_reduce_mean_,
+from pointfoot_tpu_torch.parallel.mesh import (Mesh, _alone,
+                                               all_reduce_mean_,
                                                all_reduce_sum_)
 from pointfoot_tpu_torch.rl.networks import (ActorCritic, gaussian_entropy,
                                              gaussian_log_prob, map_carry)
@@ -349,6 +360,60 @@ class PPO:
         self.update_count = int(state["update_count"])
 
 
+def graph_route(device: torch.device, mesh: Optional[Mesh]) -> bool:
+    """Whether `RecurrentPPO` replays its minibatches as CUDA graphs: the
+    parameters on a card, and no collective inside the loss (a mesh of
+    several ranks, or one rank with a process group, all-reduces there)."""
+    return device.type == "cuda" and _alone(mesh)
+
+
+def graph_key(params: Sequence[torch.Tensor], count: Optional[int],
+              args) -> tuple:
+    """What a captured minibatch depends on: the memory of each parameter
+    and of its gradient, which the graph reads and accumulates into in
+    place; the layout of each input tensor of `args`; the constant
+    `count`; and the TF32 switch, which picks the matrix products'
+    kernels."""
+    return (tuple((p.data_ptr(), None if p.grad is None
+                   else p.grad.data_ptr()) for p in params),
+            tuple((t.shape, t.stride(), t.dtype) for t in tree_leaves(args)),
+            count, torch.backends.cuda.matmul.allow_tf32)
+
+
+class _MinibatchGraph:
+    """`fn(*args)` (zero the gradients, forward, loss, backward) captured
+    as a CUDA graph over static copies of `args`, by PyTorch's recipe for
+    whole-network capture: warm-up runs on a side stream, then the capture
+    on it.  A call copies its inputs into the static ones, replays, and
+    returns copies of the loss and metrics, which the next replay
+    overwrites."""
+
+    WARMUP = 3  # eager runs before the capture (PyTorch's recipe)
+
+    def __init__(self, fn: Callable, args):
+        leaves, spec = tree_flatten(args)
+        self.inputs = [torch.empty_like(t) for t in leaves]
+        for dst, src in zip(self.inputs, leaves):
+            dst.copy_(src)
+        static = tree_unflatten(self.inputs, spec)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            for _ in range(self.WARMUP):
+                fn(*static)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.outputs = fn(*static)
+        torch.cuda.current_stream().wait_stream(stream)
+
+    def __call__(self, args):
+        for dst, src in zip(self.inputs, tree_leaves(args)):
+            dst.copy_(src)
+        self.graph.replay()
+        loss, metrics = self.outputs
+        return loss.clone(), {k: v.clone() for k, v in metrics.items()}
+
+
 class RecurrentPPO(PPO):
     """PPO for ActorCriticRecurrent (pointfoot_tpu/rl/ppo.py RecurrentPPO).
 
@@ -357,6 +422,12 @@ class RecurrentPPO(PPO):
     carry the rollout started with, zeroing an env's carry before step t
     where it was done at t - 1, and backpropagates through the whole
     window; the advantages are normalised over the (T, mb) window."""
+
+    def __init__(self, network: ActorCritic, cfg: AlgorithmCfg,
+                 mesh: Optional[Mesh] = None):
+        super().__init__(network, cfg, mesh)
+        # the captured minibatches by `graph_key`, on the graph route
+        self._graphs: Dict[tuple, _MinibatchGraph] = {}
 
     def sequence_outputs(self, carry0, batch: Transition):
         """(mean, std, value), each (T, mb, ...), of the network replayed
@@ -371,7 +442,33 @@ class RecurrentPPO(PPO):
                       count: Optional[int] = None):
         """The window loss of a minibatch of envs and its metrics; leaves
         the gradients in the parameters' `.grad`.  `count`: the global
-        minibatch's T * envs, with a mesh."""
+        minibatch's T * envs, with a mesh.
+
+        On the graph route each `graph_key` is captured at its first call
+        and replayed at every call; a capture drops the graphs that wrote
+        to gradients no longer the parameters'."""
+        if not graph_route(self.params[0].device, self.mesh):
+            return self._loss_and_grad_eager(carry0, batch, advantages,
+                                             returns, count)
+        for p in self.params:
+            if p.grad is None:  # the graph accumulates into it
+                p.grad = torch.zeros_like(p)
+        args = (carry0, batch, advantages, returns)
+        key = graph_key(self.params, count, args)
+        graph = self._graphs.get(key)
+        if graph is None:
+            with profiling.span("ppo.graph_capture"):
+                graph = _MinibatchGraph(
+                    lambda *a: self._loss_and_grad_eager(*a, count), args)
+            self._graphs = {k: g for k, g in self._graphs.items()
+                            if k[0] == key[0]}
+            self._graphs[key] = graph
+            profiling.count("ppo.graph_capture")
+        profiling.count("ppo.graph_replay")
+        return graph(args)
+
+    def _loss_and_grad_eager(self, carry0, batch: Transition, advantages,
+                             returns, count: Optional[int] = None):
         self.optimizer.zero_grad(set_to_none=False)
         mean, std, value = self.sequence_outputs(carry0, batch)
         loss, metrics = self._loss_from_outputs(mean, std, value, batch,

@@ -516,10 +516,12 @@ class OnPolicyRunner:
 def row_scalars(row: dict) -> Dict[str, float]:
     """What `learn` logs of an iteration's row (utils/profiling.py), by
     the host's clock: `rollout_s`, `update_s` and `host_wait_s` (the
-    update's waits for the card); where the env queried terrain,
-    `terrain_ms_per_step` and `terrain_ns_per_point`; each env phase's
-    self ms a step, `env_<phase>_ms`; with DP collectives, `collective_s`
-    and `dp_bytes` (this rank's)."""
+    update's waits for the card); the recurrent update's CUDA graphs
+    captured and minibatches replayed, `ppo_graph_capture` and
+    `ppo_graph_replay` (0 off the graph route); where the env queried
+    terrain, `terrain_ms_per_step` and `terrain_ns_per_point`; each env
+    phase's self ms a step, `env_<phase>_ms`; with DP collectives,
+    `collective_s` and `dp_bytes` (this rank's)."""
     spans, counts = row["spans"], row["counters"]
 
     def total(name):
@@ -527,7 +529,9 @@ def row_scalars(row: dict) -> Dict[str, float]:
 
     out = {"rollout_s": total("runner.rollout"),
            "update_s": total("runner.update"),
-           "host_wait_s": total("host.wait")}
+           "host_wait_s": total("host.wait"),
+           "ppo_graph_capture": counts.get("ppo.graph_capture", 0),
+           "ppo_graph_replay": counts.get("ppo.graph_replay", 0)}
     steps = spans.get("env.step", {}).get("count", 0)
     terrain_s = total("terrain.surface") + total("terrain.scan")
     points = counts.get("terrain.points", 0)

@@ -13,6 +13,7 @@ from _torch_dp_worker import run_ranks
 from pointfoot_tpu_torch import bench
 from pointfoot_tpu_torch.envs.legged_env import STEP_PHASES
 from pointfoot_tpu_torch.physics import dynamics
+from pointfoot_tpu_torch.rl.runner import row_scalars
 from pointfoot_tpu_torch.terrain.procedural import ProceduralTerrain
 from pointfoot_tpu_torch.utils import profiling
 from pointfoot_tpu_torch.utils.registry import (get_cfgs, make_alg_runner,
@@ -239,6 +240,10 @@ def test_train_iteration_closes_one_row_of_every_span(recurrent):
     assert {f"env.{p}" for p in bench.PHASES} <= set(row["spans"])
     # no kernel on the CPU, no mesh: terrain points only
     assert row["counters"] == {"terrain.points": T * per_step}
+    # no update replays a CUDA graph off the card: the logged row carries
+    # the graph counters at 0
+    scalars = row_scalars(row)
+    assert scalars["ppo_graph_capture"] == scalars["ppo_graph_replay"] == 0
     for s in row["spans"].values():
         assert 0.0 <= s["self_s"] <= s["total_s"]
     recs = _row_records(row)
