@@ -167,8 +167,8 @@ fused rollout kernels on its shard).
    only load the libraries: two ranks on cuda:0 (`chip_smoke.py --dp-rank
    R DIR`, started by the script) on gloo with CUDA tensors, since nccl
    refuses two ranks on one device, each with 4096 envs of the registered
-   pointfoot_rough: (a) the union of the ranks' rollout_substeps_sharded
-   outputs on the rank's rows of one 8192-env state, bit for bit against
+   pointfoot_rough: (a) the union of the ranks' rollout_substeps outputs
+   on each rank's rows of one 8192-env state, bit for bit against
    this process's rollout_substeps of all 8192 rows; (b) kernel 1 on each
    rank's rows bit for bit against its plain version; (c) the launches of
    one DP training iteration on each rank (96 rollout-substep, 24
@@ -2883,12 +2883,12 @@ def dp_rank_checks(mesh, tmp: str) -> dict:
         tmp, f"rank{mesh.rank}"))
     out = {}
 
-    # (a) the sharded rollout on this rank's rows of the parent's state
+    # (a) the fused rollout on this rank's rows of the parent's state
     state = env.shard_state(inp["state"])
     actions = env.shard_rows(inp["actions"])
     args = rollout_args(env, state, actions)
     reset_counts()
-    phys, tau, sphere = sp.rollout_substeps_sharded(mesh, env.model, *args)
+    phys, tau, sphere = sp.rollout_substeps(env.model, *args)
     torch.cuda.synchronize()
     out["rollout_launches"] = read_counts()
     out["rollout"] = [x.cpu() for x in (
@@ -2897,8 +2897,7 @@ def dp_rank_checks(mesh, tmp: str) -> dict:
 
     # (b) kernels 1 and 2 on this rank's rows against their plain versions
     errs = check_rollout((phys, tau, sphere),
-                         sp.rollout_substeps_sharded_plain(mesh, env.model,
-                                                           *args))
+                         sp.rollout_substeps_plain(env.model, *args))
     out["kernel_err"] = max(errs.values())
 
     # training, fresh from seed 0: warm iterations, then one timed with
@@ -3002,14 +3001,13 @@ def dp_phase() -> dict:
         expect_counts(o["rollout_launches"],
                       rollout_substep=env.cfg.control.decimation,
                       fk_from_state=1)
-    log(f"[dp] rollout_substeps_sharded: the union of {DP_RANKS} ranks' "
-        f"outputs on a {env.num_envs}-env state is bit-identical to the "
-        f"single-process rollout_substeps of the same rows; launches a rank "
-        f"{outs[0]['rollout_launches']}")
+    log(f"[dp] rollout_substeps on each rank's rows: the union of "
+        f"{DP_RANKS} ranks' outputs on a {env.num_envs}-env state is "
+        f"bit-identical to the single-process rollout_substeps of the same "
+        f"rows; launches a rank {outs[0]['rollout_launches']}")
     kerr = max(o["kernel_err"] for o in outs)
-    log(f"[dp] rollout_substeps_sharded on each rank's {NUM_ENVS} rows: "
-        f"bit-identical to rollout_substeps_sharded_plain (max |err| "
-        f"{kerr})")
+    log(f"[dp] rollout_substeps on each rank's {NUM_ENVS} rows: "
+        f"bit-identical to rollout_substeps_plain (max |err| {kerr})")
 
     # (c) the launches of one iteration on each rank
     T = get_cfgs(DP_TASK)[1].runner.num_steps_per_env

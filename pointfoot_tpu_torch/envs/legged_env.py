@@ -23,9 +23,9 @@ as in the JAX env (envs do not interact, so the physics is unaffected).
 
 For data-parallel training (parallel/mesh.py) the runner sets `shard_mesh`:
 the env then steps one rank's shard of `global_num_envs` (`num_envs` is
-the shard's size), takes the fused rollout per rank
-(ops/cuda/substep.rollout_substeps_sharded) when the shard is wide
-enough, and the command curriculum judges the episodes of all ranks.
+the shard's size, checked across ranks once, when the mesh is attached),
+gates the fused rollout on the shard's width, and the command curriculum
+judges the episodes of all ranks.
 """
 
 from __future__ import annotations
@@ -40,11 +40,11 @@ import torch
 from pointfoot_tpu_torch.device import resolve_device
 from pointfoot_tpu_torch.envs.config import LeggedEnvCfg
 from pointfoot_tpu_torch.ops import quat as quat_ops
-from pointfoot_tpu_torch.ops.cuda.substep import (rollout_substeps,
-                                                  rollout_substeps_sharded)
+from pointfoot_tpu_torch.ops.cuda.substep import rollout_substeps
 from pointfoot_tpu_torch.parallel.mesh import (all_gather_rows,
                                                all_reduce_sum_, env_sharding,
-                                               rank_seed, shard_batch)
+                                               rank_seed, same_rows,
+                                               shard_batch)
 from pointfoot_tpu_torch.physics import actuator as act
 from pointfoot_tpu_torch.physics import dynamics
 from pointfoot_tpu_torch.physics.assets import get_model
@@ -251,13 +251,15 @@ class LeggedEnv:
     def shard_mesh(self):
         """The data-parallel mesh (parallel/mesh.py) whose rank's shard of
         the `global_num_envs` envs this env steps, or None.  Set by the
-        runner; raises when the global batch does not divide."""
+        runner; raises when the global batch does not divide, or (a
+        collective) when the ranks' shards differ in size."""
         return self._shard_mesh
 
     @shard_mesh.setter
     def shard_mesh(self, mesh) -> None:
         if mesh is not None:
             env_sharding(mesh, self.global_num_envs)
+            same_rows(mesh, self.global_num_envs // mesh.world_size)
         self._shard_mesh = mesh
 
     @property
@@ -482,33 +484,23 @@ class LeggedEnv:
         applied on substep 0 only.  Returns (physics, last torques,
         actuator carry, sphere positions of the final state or None).
 
-        PD control takes the fused rollout where the kernels' batch is wide
-        enough, as in JAX (pointfoot_tpu/envs/legged_env.py:442-472): one
-        process at MEGA_MIN_BATCH envs or more; a rank of a data-parallel
-        run (world size > 1) on its shard when the global batch divides
-        and the shard holds MEGA_MIN_BATCH envs or more.  Otherwise each
-        process takes the scan path on its own rows, where each tick of the
-        actuator network runs in the span `actuator.torque` and adds the
-        joint rows it takes (envs x nj) to the counter `actuator.rows`."""
+        PD control takes the fused rollout on this process's rows where
+        they are wide enough for the kernels, as in JAX
+        (pointfoot_tpu/envs/legged_env.py:442-472): MEGA_MIN_BATCH envs or
+        more, of one process or of a rank's shard.  Otherwise the scan
+        path runs on the same rows, where each tick of the actuator network
+        runs in the span `actuator.torque` and adds the joint rows it takes
+        (envs x nj) to the counter `actuator.rows`."""
         c = self.cfg.control
         sim_dt = self.cfg.sim.dt
-        mesh = self._shard_mesh
-        args = (self.model, state.params, state.physics, actions,
+        if (not self.use_actuator_net
+                and self.num_envs >= dynamics.MEGA_MIN_BATCH):
+            phys, tau, sphere_pos = rollout_substeps(
+                self.model, state.params, state.physics, actions,
                 state.last_qvel, state.push_force, self.height_fn, sim_dt,
                 c.decimation, self.default_qpos_values, c.action_scale,
-                c.control_type)
-        if not self.use_actuator_net:
-            if mesh is None or mesh.world_size == 1:
-                if self.num_envs >= dynamics.MEGA_MIN_BATCH:
-                    phys, tau, sphere_pos = rollout_substeps(
-                        *args, gravity=self.cfg.sim.gravity)
-                    return phys, tau, state.actuator_carry, sphere_pos
-            elif (self.global_num_envs % mesh.world_size == 0
-                  and self.global_num_envs // mesh.world_size
-                  >= dynamics.MEGA_MIN_BATCH):
-                phys, tau, sphere_pos = rollout_substeps_sharded(
-                    mesh, *args, gravity=self.cfg.sim.gravity)
-                return phys, tau, state.actuator_carry, sphere_pos
+                c.control_type, gravity=self.cfg.sim.gravity)
+            return phys, tau, state.actuator_carry, sphere_pos
 
         # the scan path: one step_batched per substep
         phys, last_qvel = state.physics, state.last_qvel

@@ -1,15 +1,15 @@
 """Physics substep kernels (pointfoot_tpu/ops/pallas/substep.py).
 
-Three entry points, each with the state kept as rows × envs ((R, B) float32,
+Two routes, each with the state kept as rows × envs ((R, B) float32,
 contiguous) inside:
 
 - the fused decimation rollout, `rollout_substeps`: one kernel launch per
   physics substep, with the PD torque and the FK of the output inside it.
   Between substeps only the terrain surface query runs, in plain PyTorch.
-  On non-flat terrain one FK launch seeds the first surface query.
-- `rollout_substeps_sharded`: the same on one rank's shard of a
-  data-parallel batch (parallel/mesh.py), the kernels launched on the
-  rank's rows;
+  On non-flat terrain one FK launch seeds the first surface query.  A
+  rank of a data-parallel run calls it on its own rows, where JAX wraps
+  the kernels in `shard_map` (pointfoot_tpu/ops/pallas/substep.py:449);
+  the physics is env-parallel, so nothing crosses ranks;
 - one substep with the torque, push and surface as inputs, `substep`, and
   the sphere-xy FK that feeds its surface query, `fk_contact_xy`: the
   mega-kernel route of physics/dynamics.step_batched.
@@ -39,7 +39,6 @@ import torch
 
 from pointfoot_tpu_torch.ops.cuda import build
 from pointfoot_tpu_torch.ops.cuda._grad import refuse_grad
-from pointfoot_tpu_torch.parallel.mesh import same_rows
 from pointfoot_tpu_torch.physics import rowdyn
 from pointfoot_tpu_torch.physics.contact import query_surface
 from pointfoot_tpu_torch.physics.model import PhysicsParams, PhysicsState
@@ -444,46 +443,6 @@ def rollout_substeps_plain(model, params: PhysicsParams, phys: PhysicsState,
     return _rollout(rollout_step_plain, fk_rows_plain, model, params, phys,
                     actions, last_qvel, push, height_fn, sim_dt, n_sub,
                     default_qpos, action_scale, control_type, gravity)
-
-
-def rollout_substeps_sharded(mesh, model, params: PhysicsParams,
-                             phys: PhysicsState, actions: torch.Tensor,
-                             last_qvel: torch.Tensor, push: torch.Tensor,
-                             height_fn, sim_dt: float, n_sub: int,
-                             default_qpos: Sequence[float],
-                             action_scale: float, control_type: str,
-                             gravity: float = 9.81):
-    """`rollout_substeps` on this rank's shard of a data-parallel batch
-    (pointfoot_tpu/ops/pallas/substep.py:449, the fused rollout under
-    `jax.shard_map` over 'dp'): each rank launches the kernels on its own
-    rows, and nothing crosses ranks, since the physics is env-parallel.
-
-    The inputs are the rank's rows; any shard width goes, as in JAX, and
-    the env decides when the kernels' batch is wide enough.  A collective
-    first checks that every rank holds as many rows, i.e. that the rows
-    are the shards of one global batch that divides by the world size, and
-    raises otherwise.  Same results as `rollout_substeps` on the rows."""
-    same_rows(mesh, phys.base_pos.shape[0])
-    return rollout_substeps(model, params, phys, actions, last_qvel, push,
-                            height_fn, sim_dt, n_sub, default_qpos,
-                            action_scale, control_type, gravity)
-
-
-def rollout_substeps_sharded_plain(mesh, model, params: PhysicsParams,
-                                   phys: PhysicsState, actions: torch.Tensor,
-                                   last_qvel: torch.Tensor,
-                                   push: torch.Tensor, height_fn,
-                                   sim_dt: float, n_sub: int,
-                                   default_qpos: Sequence[float],
-                                   action_scale: float, control_type: str,
-                                   gravity: float = 9.81):
-    """`rollout_substeps_sharded` through the plain versions on any
-    device."""
-    same_rows(mesh, phys.base_pos.shape[0])
-    return rollout_substeps_plain(model, params, phys, actions, last_qvel,
-                                  push, height_fn, sim_dt, n_sub,
-                                  default_qpos, action_scale, control_type,
-                                  gravity)
 
 
 def _unpack(rows: torch.Tensor, layout) -> dict:

@@ -14,11 +14,12 @@ device mesh, `env_sharding` of the batch sharding (the slice of rows a rank
 holds), and `replicated` broadcasts a module's parameters and buffers from
 rank 0.
 
-The collectives of the training step (`all_gather_rows`,
-`all_reduce_sum_` and with it `all_reduce_mean_`, `same_rows`) each run
-in a `dp.collective` span (utils/profiling.py) and add the bytes this
-rank sends to the counter `dp.bytes`.  The span times the host: NCCL
-enqueues its work, so the device's time is read from a profiler trace.
+The collectives (`all_gather_rows`, `all_reduce_sum_` and with it
+`all_reduce_mean_`, and `same_rows`, which runs once, when an env attaches
+the mesh) each run in a `dp.collective` span (utils/profiling.py) and add
+the bytes this rank sends to the counter `dp.bytes`.  The span times the
+host: NCCL enqueues its work, so the device's time is read from a profiler
+trace.
 """
 
 from __future__ import annotations
@@ -233,8 +234,10 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor],
 def same_rows(mesh: Mesh, rows: int) -> None:
     """Raise unless every rank holds `rows` rows, i.e. the ranks hold the
     shards of a global batch that divides by the world size.  A
-    collective."""
-    if _alone(mesh):
+    collective, made once, when an env attaches the mesh
+    (envs/legged_env.py, `shard_mesh`).  Without a process group there is
+    no other rank to compare with, and it returns at once."""
+    if mesh is None or not dist.is_initialized():
         return
     with profiling.span("dp.collective"):
         t = torch.tensor([rows, -rows], dtype=torch.int64,

@@ -9,9 +9,10 @@ The ranks meet through a file under <dir> on the gloo backend, on the CPU;
 rows), and each rank writes <dir>/out<rank>.pt.  Jobs:
 
 - rollout: an all-reduce of the rank's row of a (2, n) array;
-  `shard_batch` and `all_gather_rows` of an env state;
-  `rollout_substeps_sharded` on the rank's rows of a physics batch, then
-  on shards of unequal size, which must raise;
+  `shard_batch` and `all_gather_rows` of an env state; `rollout_substeps`
+  on the rank's rows of a physics batch; then the mesh attached to envs
+  whose shards differ in size (rank 0 builds 8 envs, rank 1 10), which
+  must raise;
 - iteration: one `train_iteration` (or `train_iteration_recurrent`) of a
   runner on the mesh from a given PPO state, env state, observations,
   carry, action noise and permutations; the rollout and state gathered;
@@ -47,19 +48,10 @@ def _train_cfg(spec):
                           for group, fields in spec["train"].items()})
 
 
-def _rollout(mesh, env, inp, take):
-    c = env.cfg.control
-    return sp.rollout_substeps_sharded(
-        mesh, env.model, take(inp["params"]), take(inp["phys"]),
-        take(inp["actions"]), take(inp["last_qvel"]), take(inp["push"]),
-        env.height_fn, env.cfg.sim.dt, c.decimation,
-        env.default_qpos_values, c.action_scale, c.control_type,
-        gravity=env.cfg.sim.gravity)
-
-
 def rollout(mesh, inp):
     B = inp["num_envs"]
     env = make_env(inp["task"], num_envs=B, device="cpu")
+    env.shard_mesh = mesh
     out = {}
     x = pm.shard_batch(inp["psum"], mesh)
     pm.all_reduce_sum_([x], mesh)
@@ -69,17 +61,23 @@ def rollout(mesh, inp):
     out["local_rows"] = state.physics.base_pos.shape[0]
     out["gathered"] = pm.all_gather_rows(state, mesh,
                                          replicate=EnvState.REPLICATED)
-    phys, tau, sphere = _rollout(
-        mesh, env, inp, lambda t: pm.shard_batch(t, mesh, batch=B))
+    c = env.cfg.control
+    phys, tau, sphere = sp.rollout_substeps(
+        env.model, *(pm.shard_batch(inp[k], mesh, batch=B) for k in (
+            "params", "phys", "actions", "last_qvel", "push")),
+        env.height_fn, env.cfg.sim.dt, c.decimation,
+        env.default_qpos_values, c.action_scale, c.control_type,
+        gravity=env.cfg.sim.gravity)
     out.update(phys=phys, tau=tau, sphere_pos=sphere)
-    # shards of unequal size: rank 0 holds 5 of 9 rows, rank 1 the other 4
-    lo, hi = (0, 5) if mesh.rank == 0 else (5, 9)
+    # shards of unequal size: 4 rows on rank 0, 5 on rank 1
+    uneven = make_env(inp["task"], num_envs=8 if mesh.rank == 0 else 10,
+                      device="cpu")
     try:
-        _rollout(mesh, env, inp, lambda t: pm._map_rows(
-            lambda v: v[lo:hi], t, 0, B, ()))
+        uneven.shard_mesh = mesh
         out["uneven"] = None
     except ValueError as e:
         out["uneven"] = str(e)
+    out["uneven_attached"] = uneven.shard_mesh is not None
     return out
 
 

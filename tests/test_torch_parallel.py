@@ -1,21 +1,22 @@
-"""parallel/mesh.py and `rollout_substeps_sharded` of the PyTorch port
-against the JAX package's parallel/mesh.py and its sharded fused rollout
-(tests/test_sharding.py), and the env's route gate.
+"""parallel/mesh.py and the fused rollout on a rank's rows of the PyTorch
+port against the JAX package's parallel/mesh.py and its sharded fused
+rollout (tests/test_sharding.py), and the env's route gate.
 
 - `shard_batch` placement and replication as in test_sharding.py:22-32,
   on meshes of 8 ranks made up in one process (no collective runs).
 - Two gloo ranks on the CPU (tests/_torch_dp_worker.py): an all-reduce
   against JAX's psum over a 2-device mesh; `all_gather_rows` undoing
-  `shard_batch`; the port's `rollout_substeps_sharded` (the plain route on
-  CPU tensors) on the inputs of test_sharding.py:67-111 (16 envs of the
-  registered pointfoot_rough after 3 steps, random actions) against JAX's
-  `rollout_substeps_sharded` on the 8-device CPU mesh in interpret mode,
-  at the tolerances of tests/test_pallas_substep.py:141-151 (as
-  tests/test_torch_substep.py), and bit for bit against the port's
-  single-process plain rollout of the same rows; shards of unequal size
-  raise on both ranks.
-- The env's gate (JAX legged_env.py:442-472): a rank takes the sharded
-  route only with 4096 envs or more of its own, by a spy on the routes.
+  `shard_batch`; the port's `rollout_substeps` on each rank's rows (the
+  plain route on CPU tensors) on the inputs of test_sharding.py:67-111 (16
+  envs of the registered pointfoot_rough after 3 steps, random actions)
+  against JAX's `rollout_substeps_sharded` on the 8-device CPU mesh in
+  interpret mode, at the tolerances of tests/test_pallas_substep.py:141-151
+  (as tests/test_torch_substep.py), and bit for bit against the port's
+  single-process plain rollout of the same rows; envs whose shards differ
+  in size raise on both ranks when the mesh is attached.
+- The env's gate (JAX legged_env.py:442-472): a rank takes the fused
+  route on its rows only with 4096 envs or more of its own, by a spy on
+  the routes.
 - `scaling_bench` on the CPU.
 """
 
@@ -223,8 +224,10 @@ def test_sharded_rollout_equals_single_process_rollout(ranks):
 
 
 def test_uneven_shards_raise_on_every_rank(ranks):
+    """Ranks whose envs were built with 8 and 10 envs (shards of 4 and 5)
+    both raise when the mesh is attached, and stay unattached."""
     for o in ranks["outs"]:
-        assert o["uneven"] is not None
+        assert o["uneven"] is not None and not o["uneven_attached"]
         assert "not the shards of one global batch" in o["uneven"]
 
 
@@ -235,15 +238,15 @@ class _Taken(Exception):
 
 
 @pytest.mark.parametrize("world, per_rank, route", [
-    (2, dynamics.MEGA_MIN_BATCH, "sharded"),
+    (2, dynamics.MEGA_MIN_BATCH, "fused"),
     (2, dynamics.MEGA_MIN_BATCH - 1, "scan"),
     (1, dynamics.MEGA_MIN_BATCH, "fused"),
     (1, dynamics.MEGA_MIN_BATCH - 1, "scan"),
 ])
 def test_env_route_gate(monkeypatch, world, per_rank, route):
-    """JAX legged_env.py:442-472: one process takes the fused rollout at
-    MEGA_MIN_BATCH envs, a rank of a larger world the sharded one when its
-    own shard holds that many, and otherwise the scan path on its rows."""
+    """JAX legged_env.py:442-472: one process, or a rank of a larger
+    world, takes the fused rollout on its own rows when they are
+    MEGA_MIN_BATCH envs or more, and otherwise the scan path on them."""
     env = make_env("pointfoot_flat", num_envs=world * per_rank,
                    device="cpu")
     env.shard_mesh = _fake_mesh(world - 1, world)
@@ -254,14 +257,11 @@ def test_env_route_gate(monkeypatch, world, per_rank, route):
 
     def spy(name):
         def fn(*args, **kwargs):
-            # the physics state follows (mesh,) model, params
-            taken.append((name, args[3 if name == "sharded" else 2]
-                          .base_pos.shape[0]))
+            # the physics state follows model, params
+            taken.append((name, args[2].base_pos.shape[0]))
             raise _Taken
         return fn
 
-    monkeypatch.setattr(legged_env, "rollout_substeps_sharded",
-                        spy("sharded"))
     monkeypatch.setattr(legged_env, "rollout_substeps", spy("fused"))
     monkeypatch.setattr(dynamics, "step_batched", spy("scan"))
     with pytest.raises(_Taken):
