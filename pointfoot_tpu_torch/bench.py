@@ -60,7 +60,9 @@ JAX bench times them; vs_baseline = solves/s over real time, num_envs x
 `--mode env_phases`: the cost of each post-physics phase of the
 procedural pointfoot_rough step, by ablation (LeggedEnv._ablate): `--mode
 env`'s procedural measurement (one repetition of `--iters` iterations,
-default 10) of the full step and of five variants with phases replaced by
+default 10), through the step's eager body (`LeggedEnv._step_eager`;
+`step` replays it as a CUDA graph on a card, envs/step_graph.py), of the
+full step and of five variants with phases replaced by
 zeros: `physics_only` (every post-physics phase), `no_reward`,
 `no_obs_heights` (observations and height scan), `no_reset` and
 `no_cmd_push` (command resampling and pushes).  The record's `phases`
@@ -241,22 +243,25 @@ def main_mpc_ilqr(num_envs: int = 4096, iters: int = 3, chunk: int = 1024,
 
 
 def bench_env(task: str, procedural: bool, num_envs: int, iters: int,
-              reps: int, steps: int, device: torch.device, ablate=()):
+              reps: int, steps: int, device: torch.device, ablate=(),
+              eager: bool = False):
     """Env-steps/s of `task` on one terrain path, the phases `ablate`
-    replaced by zeros: (median of the repetitions, the repetitions, warm
-    iterations of the settle loop, the repetitions' profiling row: None
-    outside `profiling.recording()`)."""
+    replaced by zeros, through `env.step` or, with `eager`, its eager body
+    (in the span `env.step`, as `step` opens it): (median of the
+    repetitions, the repetitions, warm iterations of the settle loop, the
+    repetitions' profiling row: None outside `profiling.recording()`)."""
     env = make_env(task, num_envs=num_envs, device=device,
                    cfg_patch=dict(terrain=dict(procedural=procedural)))
     env._ablate = frozenset(ablate)
     state = env.init_state(0)
     g = torch.Generator(device=device).manual_seed(1)
+    step = profiling.span("env.step")(env._step_eager) if eager else env.step
 
     def run(state):
         phase = 6.28 * torch.rand(num_envs, env.num_actions, generator=g,
                                   device=device)
         for t in range(steps):
-            state, out = env.step(state, 0.2 * torch.sin(phase + 0.1 * t))
+            state, out = step(state, 0.2 * torch.sin(phase + 0.1 * t))
         return state, out.reward
 
     state, rew = run(state)
@@ -328,7 +333,8 @@ def main_env_phases(task: str = "pointfoot_rough", num_envs: int = 4096,
         with (profiling.recording() if name == "full"
               else contextlib.nullcontext()):
             sps, _, settles[name], row = bench_env(
-                task, True, num_envs, iters, 1, steps, device, ablate)
+                task, True, num_envs, iters, 1, steps, device, ablate,
+                eager=True)
         phases[name] = round(sps, 1)
         if name == "full":
             phase_ms = {p: round(ms, 4)

@@ -21,6 +21,11 @@ origins lie on a square lattice: with as many levels as types, level and
 type come from one formula, so the origins fall on the lattice's diagonal,
 as in the JAX env (envs do not interact, so the physics is unaffected).
 
+On one card `step` replays its body as one CUDA graph (envs/step_graph.py):
+the same kernels, ~1000 host dispatches fewer a step.  Everything the body
+does on the card is therefore capturable: constants and index sets live on
+the device, made once, and no value is read back to the host.
+
 For data-parallel training (parallel/mesh.py) the runner sets `shard_mesh`:
 the env then steps one rank's shard of `global_num_envs` (`num_envs` is
 the shard's size, checked across ranks once, when the mesh is attached),
@@ -37,7 +42,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from pointfoot_tpu_torch.device import resolve_device
+from pointfoot_tpu_torch.device import const, resolve_device
+from pointfoot_tpu_torch.envs import step_graph
 from pointfoot_tpu_torch.envs.config import LeggedEnvCfg
 from pointfoot_tpu_torch.ops import quat as quat_ops
 from pointfoot_tpu_torch.ops.cuda.substep import rollout_substeps
@@ -64,11 +70,14 @@ STEP_PHASES = ("physics",) + PHASES
 def phase_ms_per_step(row: dict) -> Dict[str, float]:
     """Each phase's self milliseconds a step in a row of utils/profiling
     (its own time: the terrain queries inside it count under `terrain.*`);
-    {} where the row holds no env step."""
+    {} where the row holds no env step, or steps whose phases ran in no
+    span (a CUDA graph's replays, envs/step_graph.py)."""
     spans = row["spans"]
     steps = spans.get("env.step", {}).get("count", 0)
+    if not steps or not any(f"env.{p}" in spans for p in STEP_PHASES):
+        return {}
     out = {}
-    for p in STEP_PHASES if steps else ():
+    for p in STEP_PHASES:
         s = spans.get(f"env.{p}")
         out[p] = s["self_s"] / steps * 1e3 if s else 0.0
     return out
@@ -152,6 +161,8 @@ class LeggedEnv:
         self.max_episode_length = cfg.max_episode_length
         self.max_episode_length_s = cfg.env.episode_length_s
         self.generator = torch.Generator(device=dev)
+        # `step`'s CUDA graphs by `step_graph.graph_key`, on one card
+        self._graphs: Dict[tuple, step_graph.StepGraph] = {}
 
         self.is_plane = cfg.terrain.mesh_type == "plane"
         if self.is_plane:
@@ -196,6 +207,12 @@ class LeggedEnv:
         # penalized excludes feet (they legitimately touch the ground)
         self.penalized_idx = tuple(sorted(set(pen) - set(self.feet_idx)))
         self.nf = len(self.feet_idx)
+        # the same sets as index tensors on the device: indexing by a list
+        # copies it to the card and waits, which a CUDA graph cannot capture
+        self.feet_index, self.termination_index, self.penalized_index = (
+            torch.tensor(ix, dtype=torch.int64, device=dev)
+            for ix in (self.feet_idx, self.termination_idx,
+                       self.penalized_idx))
         if not self.feet_idx:
             raise ValueError(f"no feet matched '{cfg.asset.foot_name}' in "
                              f"{m.collision_names}")
@@ -531,7 +548,7 @@ class LeggedEnv:
         base_lin_vel = quat_ops.rotate_inverse(q, phys.base_lin_vel)
         base_ang_vel = quat_ops.rotate_inverse(q, phys.base_ang_vel)
         proj_grav = quat_ops.rotate_inverse(
-            q, q.new_tensor(GRAVITY_VEC).expand(phys.base_pos.shape))
+            q, const(GRAVITY_VEC, q).expand(phys.base_pos.shape))
         return base_lin_vel, base_ang_vel, proj_grav
 
     def _foot_positions(self, phys: PhysicsState, params) -> torch.Tensor:
@@ -565,7 +582,33 @@ class LeggedEnv:
     @profiling.span("env.step")
     def step(self, state: EnvState, actions: torch.Tensor
              ) -> Tuple[EnvState, StepOutput]:
-        """One policy step with masked resets."""
+        """One policy step with masked resets: `_step_eager`, which on one
+        card a CUDA graph of it serves (envs/step_graph.py: a capture for
+        each `graph_key`, inside the span `env.graph_capture`; counters
+        `env.graph_capture`, graphs captured, and `env.graph_replay`, steps
+        a graph served).  The CPU, a rank of a shard mesh and an input that
+        requires grad take the eager body."""
+        args = (state, actions)
+        tensors = step_graph.leaves(args)
+        if not step_graph.graph_route(state.physics.base_pos.device,
+                                      self._shard_mesh, tensors):
+            return self._step_eager(state, actions)
+        key = step_graph.graph_key(self, tensors)
+        graph = self._graphs.get(key)
+        if graph is None:
+            with profiling.span("env.graph_capture"):
+                graph = step_graph.StepGraph(self._step_eager, args,
+                                             self.generator)
+            self._graphs[key] = graph
+            profiling.count("env.graph_capture")
+        profiling.count("env.graph_replay")
+        return graph(tensors)
+
+    def _step_eager(self, state: EnvState, actions: torch.Tensor
+                    ) -> Tuple[EnvState, StepOutput]:
+        """`step`'s body, run op by op: its phases in the spans
+        `env.<phase>` (`STEP_PHASES`).  Tools that measure the step's own
+        parts call it by name (bench --mode env_phases, profile_substep)."""
         cfg = self.cfg
         B = self.num_envs
         clip_a = cfg.normalization.clip_actions
@@ -599,7 +642,7 @@ class LeggedEnv:
         # --- derived quantities
         base_lin_vel, base_ang_vel, proj_grav = \
             self._base_frame_quantities(phys)
-        feet = list(self.feet_idx)
+        feet = self.feet_index
         foot_pos = (sphere_pos[:, feet, :] if sphere_pos is not None
                     else self._foot_positions(phys, state.params))
         with profiling.span("env.heights"):
@@ -660,12 +703,12 @@ class LeggedEnv:
                 fmax = mean_mass * cfg.domain_rand.max_push_vel_xy / cfg.sim.dt
                 raw = self._uniform((B, 3), -fmax, fmax)
                 world = quat_ops.rotate(phys.base_quat, raw)
-                world = world * world.new_tensor([1.0, 1.0, 0.5])
+                world = world * const((1.0, 1.0, 0.5), world)
                 state = state.replace(push_force=torch.where(
                     push_step, world, torch.zeros_like(world)))
 
         # --- termination: contact force on base/abad spheres
-        term_force = contact_force[:, list(self.termination_idx), :]
+        term_force = contact_force[:, self.termination_index, :]
         terminate = torch.any(
             torch.linalg.vector_norm(term_force, dim=-1) > 1.0, dim=-1)
         # NaN quarantine: an exploded env resets instead of poisoning the
@@ -945,13 +988,13 @@ class LeggedEnv:
 
         # ---- state resets
         qpos_new = self.default_qpos * self._uniform((B, m.nj), 0.5, 1.5)
-        base_pos_new = origin + origin.new_tensor(cfg.init_state.pos)
+        base_pos_new = origin + const(cfg.init_state.pos, origin)
         if not self.is_plane:
             base_pos_new = torch.cat([
                 base_pos_new[:, :2] + self._uniform((B, 2), -1.0, 1.0),
                 base_pos_new[:, 2:]], dim=-1)
         vel6 = self._uniform((B, 6), -0.5, 0.5)
-        quat_new = origin.new_tensor(cfg.init_state.rot).expand(B, 4)
+        quat_new = const(cfg.init_state.rot, origin).expand(B, 4)
 
         d1 = done[:, None]
         phys = state.physics
@@ -1078,7 +1121,7 @@ def _reward_action_rate(env, ctx):
 def _reward_collision(env, ctx):
     if not env.penalized_idx:
         return torch.zeros(env.num_envs, device=env.device)
-    f = ctx["contact_force"][:, list(env.penalized_idx), :]
+    f = ctx["contact_force"][:, env.penalized_index, :]
     return (torch.linalg.vector_norm(f, dim=-1) > 0.1).to(
         torch.float32).sum(-1)
 

@@ -9,6 +9,8 @@ import math
 
 import torch
 
+from pointfoot_tpu_torch.device import const
+
 
 def normalize(q: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
     """Unit-normalize, guarding against zero norm."""
@@ -123,13 +125,13 @@ def rotate_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def yaw(q: torch.Tensor) -> torch.Tensor:
     """Heading angle: atan2 of the rotated +x axis."""
-    fwd = rotate(q, q.new_tensor([1.0, 0.0, 0.0]).expand(q.shape[:-1] + (3,)))
+    fwd = rotate(q, const((1.0, 0.0, 0.0), q).expand(q.shape[:-1] + (3,)))
     return torch.atan2(fwd[..., 1], fwd[..., 0])
 
 
 def yaw_quat(q: torch.Tensor) -> torch.Tensor:
     """Yaw-only component of q (x and y zeroed, renormalized)."""
-    return normalize(q * q.new_tensor([0.0, 0.0, 1.0, 1.0]))
+    return normalize(q * const((0.0, 0.0, 1.0, 1.0), q))
 
 
 def apply_yaw(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -186,8 +186,10 @@ def inverse_dynamics(model: RobotModel, params: PhysicsParams,
     def imul(b, x):
         return (I_bodies[:, b] @ x[..., None])[..., 0]
 
+    # a fill on the device: setting an element from a host scalar copies it
+    # to the card and waits, which a CUDA graph cannot capture
     a_grav = torch.zeros(6, dtype=S.dtype, device=S.device)
-    a_grav[5] = gravity
+    a_grav[5:].fill_(gravity)
     accs = [a_grav + udot[:, :6]]
     for b in range(1, nb):
         j = b - 1

@@ -10,9 +10,11 @@ device drained around them) five things at B = $PROFILE_NUM_ENVS envs
 (default 4096), and prints a markdown table of time a call, ns an env,
 GFLOP/s, GB/s and the share of the card's memory rate:
 
-1. the full pointfoot_rough `env.step` on procedural terrain, the
+1. the full pointfoot_rough env step on procedural terrain, the
    configuration the flagship trained on (the JAX script's make_env
-   builds the registered table terrain);
+   builds the registered table terrain), through its eager body
+   (`LeggedEnv._step_eager`; `step` replays it as a CUDA graph on a
+   card, envs/step_graph.py);
 2. `dynamics.step_batched` of PointFoot on a plane given as a height
    function without `is_flat` (at 4096 rows on the card: kernel 4, the
    surface query, kernel 3);
@@ -139,7 +141,9 @@ def _profile(args, cond: str) -> dict:
         act = torch.zeros(B, env.num_actions, device=dev)
 
         def env_step(s):
-            return env.step(s, act)[0]
+            # the eager body: the dispatch modes of `cost` see its
+            # operations, which a CUDA graph's replay would hide
+            return env._step_eager(s, act)[0]
 
         t_env = timed(env_step, st)
         f_env, by_env = cost(env_step, st)

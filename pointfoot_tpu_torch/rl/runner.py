@@ -518,9 +518,12 @@ def row_scalars(row: dict) -> Dict[str, float]:
     the host's clock: `rollout_s`, `update_s` and `host_wait_s` (the
     update's waits for the card); the recurrent update's CUDA graphs
     captured and minibatches replayed, `ppo_graph_capture` and
-    `ppo_graph_replay` (0 off the graph route); where the env queried
-    terrain, `terrain_ms_per_step` and `terrain_ns_per_point`; each env
-    phase's self ms a step, `env_<phase>_ms`; with DP collectives,
+    `ppo_graph_replay`, and the env step's, `env_graph_capture` and
+    `env_graph_replay` (0 off the graph routes); where the env's terrain
+    queries ran in their spans, `terrain_ms_per_step` and
+    `terrain_ns_per_point`; where its phases did, each phase's self ms a
+    step, `env_<phase>_ms` (a CUDA graph's replays run neither, and log
+    neither); with DP collectives,
     `collective_s` and `dp_bytes` (this rank's)."""
     spans, counts = row["spans"], row["counters"]
 
@@ -531,11 +534,13 @@ def row_scalars(row: dict) -> Dict[str, float]:
            "update_s": total("runner.update"),
            "host_wait_s": total("host.wait"),
            "ppo_graph_capture": counts.get("ppo.graph_capture", 0),
-           "ppo_graph_replay": counts.get("ppo.graph_replay", 0)}
+           "ppo_graph_replay": counts.get("ppo.graph_replay", 0),
+           "env_graph_capture": counts.get("env.graph_capture", 0),
+           "env_graph_replay": counts.get("env.graph_replay", 0)}
     steps = spans.get("env.step", {}).get("count", 0)
     terrain_s = total("terrain.surface") + total("terrain.scan")
     points = counts.get("terrain.points", 0)
-    if steps and points:
+    if steps and points and terrain_s:
         out["terrain_ms_per_step"] = terrain_s / steps * 1e3
         out["terrain_ns_per_point"] = terrain_s / points * 1e9
     for phase, ms in phase_ms_per_step(row).items():

@@ -159,6 +159,19 @@ def counters() -> Dict[str, int]:
     return dict(_REG.counters)
 
 
+@contextlib.contextmanager
+def counts_apart():
+    """Counts made inside the block go to the dict it yields, and not to
+    the process's counters (envs/step_graph.py: a CUDA graph's warm-ups and
+    capture, whose counts each replay then adds)."""
+    reg = _REG
+    kept, reg.counters = reg.counters, {}
+    try:
+        yield reg.counters
+    finally:
+        reg.counters = kept
+
+
 class _Span:
     """A span that records (inside `recording()`) and/or opens a profiler
     range (while a profiler runs), as it found the switches on entry."""

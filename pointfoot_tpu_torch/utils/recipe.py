@@ -25,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pointfoot_tpu_torch.utils import profiling
 from pointfoot_tpu_torch.utils.convert import env_state_from_numpy
 
 
@@ -48,8 +49,11 @@ def load(path: str, prefix: str = ""):
 
 class Replay:
     """`initial` is the recipe's EnvState on the env's device; `step` is
-    `env.step` with the recipe's reset draws of the next step.  `resets`,
-    where given, gets one bool a step: whether any env reset in it."""
+    `env.step` with the recipe's reset draws of the next step, through the
+    step's eager body (`_step_eager`, in the span `env.step`): draws handed
+    in from the host at every step cannot be replayed by a CUDA graph of
+    the step (envs/step_graph.py).  `resets`, where given, gets one bool a
+    step: whether any env reset in it."""
 
     def __init__(self, env, path: str, prefix: str = "",
                  resets: Optional[list] = None):
@@ -83,6 +87,7 @@ class Replay:
 
         env._reset_envs = reset_with_recipe_draws
         try:
-            return env.step(state, action)
+            with profiling.span("env.step"):
+                return env._step_eager(state, action)
         finally:
             env._reset_envs = own_reset

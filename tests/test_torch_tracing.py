@@ -244,6 +244,8 @@ def test_train_iteration_closes_one_row_of_every_span(recurrent):
     # the graph counters at 0
     scalars = row_scalars(row)
     assert scalars["ppo_graph_capture"] == scalars["ppo_graph_replay"] == 0
+    # nor any env step: the CPU steps the eager body
+    assert scalars["env_graph_capture"] == scalars["env_graph_replay"] == 0
     for s in row["spans"].values():
         assert 0.0 <= s["self_s"] <= s["total_s"]
     recs = _row_records(row)
